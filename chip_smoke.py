@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``situation3d_tpu_torch``) on one
 NVIDIA GPU: builds the CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version at the shapes the SIG3D forward gives
-it, then drives the port's main path — the full-width SIG3D scene-QA forward
-and the scene-cache serving form — and checks what comes out.
+each against its plain PyTorch version at the shapes the SIG3D forward and
+training step give it, then drives the port's main paths — the full-width
+SIG3D scene-QA forward, a few optimizer steps of the trainer in both training
+configurations (scene encoder frozen, and trained too) and the scene-cache
+serving form — and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA device, ``nvcc`` and no network. Exits non-zero when any phase
@@ -21,7 +23,15 @@ this run's inputs) / peak rate: 989 TFLOP/s for the bf16 conv product. For a
 map kernel the table bytes are what the in-extent probes of THIS run touch
 (4 B per probe of the grid, 8 B per probe of the bit tables), capped at the
 table's size; for the conv the operations are 2*C_in*C_out per map entry
-that hits a voxel in THIS run's maps.
+that hits a voxel in THIS run's maps. The row gather and the scatter-add
+do no arithmetic to speak of: the gather reads each distinct table row that
+THIS run's indices select once (not the whole table), the scatter-add its
+whole source; indices read once, output written once.
+
+Launch counts. ``launches`` of the conv and the two map kernels are read
+around one forward, those of ``gather_rows`` and ``scatter_add_rows`` around
+one training step with the scene encoder unfrozen (the path that runs the
+conv backward); the counters are set to 0 just before and read just after.
 """
 from __future__ import annotations
 
@@ -39,20 +49,33 @@ from situation3d_tpu_torch.data.synthetic import make_scene_batch
 from situation3d_tpu_torch.eval.serving import SceneCache
 from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
                                                 make_sample_draws)
-from situation3d_tpu_torch.ops.cuda import _build, fused_conv, map_bits, map_lookup
+from situation3d_tpu_torch.ops.cuda import (_build, fused_conv, gather_rows,
+                                            map_bits, map_lookup)
+from situation3d_tpu_torch.ops.voxelize import voxelize_torch
+from situation3d_tpu_torch.sparse import conv as sparse_conv
 from situation3d_tpu_torch.sparse.kernel_map import build_level_grid
 from situation3d_tpu_torch.sparse.minkunet import STRIDES, build_unet_plan
+from situation3d_tpu_torch.train.losses import get_loss
+from situation3d_tpu_torch.train.trainer import create_train_state, train_step
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 CONV_ATOL = 2e-4      # f32 accumulation in another order; outputs are O(1)
-SERVE_RTOL = 2e-2     # bf16 activations + atomics order in the token pooling
+SERVE_RTOL = 1e-2     # bf16 rounding (2^-8) when the same question is answered in a batch of 6
+SERVE_SAME_RTOL = 0.0  # same question, same batch size: pooling is deterministic, bit-equal
 SMALL_ATOL = 1e-3     # f32 small model, card (kernels) vs CPU (plain versions)
 SEED = 0
 BATCH = 8
 DEV = "cuda"   # every phase runs here; there is no CPU mode
-KERNEL_MODULES = {"fused_sparse_conv": fused_conv, "k3_map_lookup": map_lookup,
-                  "k3_map_lookup_bits": map_bits}
+SUM_ATOL = 1e-5       # scatter-add: the same f32 sums in another order
+GRAD_RTOL = 1e-4      # conv dx/dW vs plain autograd, relative to the largest value
+GRAD_RTOL_BF16 = 2e-2  # with bf16 inputs: dx, and the plain version's dW, round to bf16
+# kernel name -> (module, name of its launch counter)
+KERNEL_COUNTERS = {"fused_sparse_conv": (fused_conv, "launches"),
+                   "k3_map_lookup": (map_lookup, "launches"),
+                   "k3_map_lookup_bits": (map_bits, "launches"),
+                   "gather_rows": (gather_rows, "gather_launches"),
+                   "scatter_add_rows": (gather_rows, "scatter_launches")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -65,12 +88,12 @@ def fail(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 _flush = None
@@ -154,6 +177,208 @@ def _conv_classes(cfg):
             out.append((f"level{i}_k3_{p}to{p}", i, "map_k3", i, p, p, n))
         ch = p
     return out
+
+
+def _tmap_of(L, lvl_in, key, lvl_map):
+    """(transpose map, flip_kernel) the encoder hands the conv class: its own
+    map for the same-coords k5/k3 convs, the finer level's ``map_up`` for a
+    k2 down conv."""
+    if key == "map_down":
+        return L[lvl_in]["map_up"], False
+    return L[lvl_map][key], True
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def check_gather_scatter(cfg, L, B, records) -> None:
+    """``gather_rows`` and ``scatter_add_rows`` against their plain versions
+    at every shape one unfrozen training step gives them, with times, the
+    bytes bound and the one PyTorch call that computes the same function."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    grec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "max_abs_err": 0.0, "bound_by": "bytes", "library": "index_select",
+            "shapes": []}
+
+    def one_gather(name, table, idx, count):
+        got = gather_rows.gather_rows(table, idx)
+        want = gather_rows.gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        if got.dtype != table.dtype or not torch.equal(got, want):
+            fail(f"gather_rows {name}: kernel != plain version")
+        Bt, V, C = table.shape
+        flat_table = table.reshape(Bt * V, C)
+        flat_idx = (idx.to(torch.int64)
+                    + torch.arange(Bt, device=dev)[:, None] * V).reshape(-1)
+        ms = time_cuda(lambda: gather_rows.gather_rows(table, idx))
+        pms = time_cuda(lambda: gather_rows.gather_rows_plain(table, idx))
+        lms = time_cuda(lambda: flat_table.index_select(0, flat_idx))
+        # a gather reads only the rows it selects: count this run's distinct ones
+        seen = torch.zeros(Bt * V, dtype=torch.bool, device=dev)
+        seen[flat_idx] = True
+        rows_read = int(seen.sum())
+        del seen
+        bound = (rows_read * C * table.element_size() + idx.numel() * 4
+                 + got.numel() * got.element_size()) / HBM_BYTES_PER_S * 1e3
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                     ("bound_ms", bound)):
+            grec[k] += v * count
+        grec["shapes"].append({
+            "name": name, "per_step": count, "table": list(table.shape),
+            "R": idx.shape[1], "rows_read": rows_read,
+            "dtype": str(table.dtype).split(".")[-1],
+            "ms": round(ms, 4), "plain_ms": round(pms, 4),
+            "library_ms": round(lms, 4), "bound_ms": round(bound, 5), "exact": True})
+
+    # the dy-gathers of the conv backward: one launch per chunk of offsets
+    for name, lvl_in, key, lvl_map, c_in, c_out, count in _conv_classes(cfg):
+        t_map, _ = _tmap_of(L, lvl_in, key, lvl_map)
+        v_in, K = t_map.shape[1], t_map.shape[2]
+        v_out = L[lvl_map]["coords"].shape[1]
+        dy = torch.randn(B, v_out + 1, c_out, generator=g, device=dev).bfloat16()
+        safe = torch.where((t_map >= 0) & (t_map < v_out), t_map, v_out)
+        for j0, j1 in sparse_conv._offset_chunks(K, B * v_in * c_out * 2):
+            idx = safe[:, :, j0:j1].reshape(B, v_in * (j1 - j0)).contiguous()
+            one_gather(f"{name}_dW[{j0}:{j1}]", dy, idx, count)
+            del idx
+        del dy, safe
+
+    # token pooling: the bottleneck's (x, y) columns and a token sample
+    bott = L[-1]
+    V4, C, N = bott["coords"].shape[1], cfg.model.scene_feat_dim, cfg.model.num_scene_tokens
+    xy3 = torch.div(bott["coords"], STRIDES[-1], rounding_mode="floor").clone()
+    xy3[..., 2] = 0
+    _, _, inv, nu = voxelize_torch(xy3, bott["mask"], capacity=V4)
+    inv = torch.where(bott["mask"], inv, -1)      # as situated_token_pool does
+    token_idx = (torch.rand(B, N, generator=g, device=dev)
+                 * nu.clamp(min=1)[:, None]).to(torch.int32)
+    mean = torch.randn(B, V4, C, generator=g, device=dev)
+    one_gather("token_gather", mean, token_idx, 1)
+    one_gather("segment_sum_backward", mean, inv.clamp(min=0), 1)
+
+    srec = {"ms": 0.0, "kernel_only_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "library_ms": 0.0, "max_abs_err": 0.0, "bound_by": "bytes",
+            "library": "index_add_ (float atomics, not deterministic)",
+            "bit_equal_across_runs": True, "shapes": []}
+
+    def one_scatter(name, src, idx, V, count):
+        got = gather_rows.scatter_add_rows(src, idx, V)
+        again = gather_rows.scatter_add_rows(src, idx, V)
+        want = gather_rows.scatter_add_rows_plain(src, idx, V)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"scatter_add_rows {name}: two runs are not bit-equal")
+        err = float((got - want).abs().max())
+        if got.dtype != torch.float32 or not err <= SUM_ATOL:
+            fail(f"scatter_add_rows {name}: max abs err {err} > {SUM_ATOL}")
+        Bs, R, Cs = src.shape
+        # the library call: dropped entries (index -1) go to a spare row
+        flat_idx = (torch.where((idx >= 0) & (idx < V), idx, V).to(torch.int64)
+                    + torch.arange(Bs, device=dev)[:, None] * (V + 1)).reshape(-1)
+        flat_src = src.float().reshape(Bs * R, Cs)
+        acc = torch.empty(Bs * (V + 1), Cs, device=dev)
+        plan = gather_rows.sort_segments(idx, V)
+        longest = int((plan[1][:, 1:] - plan[1][:, :-1]).max())
+        ms = time_cuda(lambda: gather_rows.scatter_add_rows(src, idx, V))
+        kms = time_cuda(lambda: gather_rows.scatter_add_rows(src, idx, V, plan))
+        pms = time_cuda(lambda: gather_rows.scatter_add_rows_plain(src, idx, V))
+        lms = time_cuda(lambda: acc.zero_().index_add_(0, flat_idx, flat_src))
+        bound = (src.numel() * src.element_size() + idx.numel() * 4
+                 + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        for k, v in (("ms", ms), ("kernel_only_ms", kms), ("plain_ms", pms),
+                     ("library_ms", lms), ("bound_ms", bound)):
+            srec[k] += v * count
+        srec["max_abs_err"] = max(srec["max_abs_err"], err)
+        srec["shapes"].append({
+            "name": name, "per_step": count, "src": list(src.shape), "V": V,
+            "longest_segment": longest,
+            "ms": round(ms, 4), "kernel_only_ms": round(kms, 4),
+            "plain_ms": round(pms, 4), "library_ms": round(lms, 4),
+            "bound_ms": round(bound, 5), "err": err})
+
+    feats = torch.randn(B, V4, C, generator=g, device=dev) * bott["mask"][..., None]
+    one_scatter("segment_sums", feats, inv, V4, 1)
+    one_scatter("segment_counts", bott["mask"].float()[..., None], inv, V4, 1)
+    one_scatter("token_gather_backward",
+                torch.randn(B, N, C, generator=g, device=dev), token_idx, V4, 1)
+    # the bf16 instance of the kernel (the gradient of a gather from a bf16
+    # table); no step of the default model runs it, so it adds to no total
+    one_scatter("segment_sums_bf16", feats.bfloat16(), inv, V4, 0)
+    records["gather_rows"], records["scatter_add_rows"] = grec, srec
+
+
+def check_conv_backward(cfg, L, B, records) -> None:
+    """The conv ``Function``'s ``dx`` / ``dW`` on the card against plain
+    autograd through ``fused_sparse_conv_plain``, every conv class; times the
+    backward in bf16 and, alone, the ``dx`` launch of the forward kernel."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    rec = {"ms": 0.0, "plain_ms": 0.0, "dx_ms": 0.0, "max_rel_err_f32": 0.0,
+           "max_rel_err_bf16": 0.0, "shapes": []}
+    classes = [c + (True,) for c in _conv_classes(cfg)]
+    # the scatter form (no transpose map): the UNet never takes it, so it is
+    # held to the plain version here on the deepest class and adds to no total
+    last = classes[-1]
+    classes.append((last[0] + "_no_map",) + last[1:6] + (0, False))
+    for name, lvl_in, key, lvl_map, c_in, c_out, count, with_map in classes:
+        nbr = L[lvl_map][key]
+        t_map, flip = _tmap_of(L, lvl_in, key, lvl_map)
+        v_in, v_out, K = L[lvl_in]["coords"].shape[1], nbr.shape[1], nbr.shape[2]
+        want_dx = name != "conv0_k5"          # conv0's input needs no gradient
+
+        def conv(f, w):
+            if with_map:
+                return sparse_conv._SparseConvTmap.apply(f, nbr, t_map, w, flip)
+            return sparse_conv.sparse_conv_apply(f, nbr, w)
+        f32 = (torch.randn(B, v_in, c_in, generator=g, device=dev)
+               * L[lvl_in]["mask"][..., None])
+        w = (torch.randn(K, c_in, c_out, generator=g, device=dev)
+             / (K * c_in) ** 0.5).requires_grad_()
+        cot32 = (torch.randn(B, v_out, c_out, generator=g, device=dev)
+                 * L[lvl_map]["mask"][..., None])
+        errs = {}
+        for dt, tol in ((torch.float32, GRAD_RTOL), (torch.bfloat16, GRAD_RTOL_BF16)):
+            f = f32.to(dt).requires_grad_(want_dx)
+            cot = cot32.to(dt)
+            wrt = (f, w) if want_dx else (w,)
+            out = conv(f, w)
+            got = torch.autograd.grad(out, wrt, cot)
+            ref = fused_conv.fused_sparse_conv_plain(f, nbr, w)
+            want = torch.autograd.grad(ref, wrt, cot.float())
+            torch.cuda.synchronize()
+            errs[dt] = max(_rel_err(a, b) for a, b in zip(got, want))
+            if got[-1].dtype != torch.float32:
+                fail(f"conv backward {name} {dt}: dW comes back as {got[-1].dtype}")
+            if not errs[dt] <= tol:
+                fail(f"conv backward {name} {dt}: rel err {errs[dt]} > {tol}")
+            del out, ref, got, want
+        f = f32.bfloat16().requires_grad_(want_dx)
+        cot = cot32.bfloat16()
+        wrt = (f, w) if want_dx else (w,)
+        out = conv(f, w)
+        ms = time_cuda(lambda: torch.autograd.grad(out, wrt, cot, retain_graph=True))
+        ref = fused_conv.fused_sparse_conv_plain(f, nbr, w)
+        cot_f = cot.float()
+        pms = time_cuda(lambda: torch.autograd.grad(ref, wrt, cot_f, retain_graph=True),
+                        iters=3, warmup=1)
+        dx_ms = 0.0
+        if want_dx and with_map:
+            wt = (w.detach().flip(0) if flip else w.detach()).transpose(1, 2)
+            dx_ms = time_cuda(lambda: fused_conv.fused_sparse_conv(cot, t_map, wt))
+        rec["ms"] += ms * count
+        rec["plain_ms"] += pms * count
+        rec["dx_ms"] += dx_ms * count
+        rec["max_rel_err_f32"] = max(rec["max_rel_err_f32"], errs[torch.float32])
+        rec["max_rel_err_bf16"] = max(rec["max_rel_err_bf16"], errs[torch.bfloat16])
+        rec["shapes"].append({
+            "name": name, "per_step": count, "dx": want_dx, "backward_ms": round(ms, 4),
+            "plain_backward_ms": round(pms, 4), "dx_ms": round(dx_ms, 4),
+            "err_f32": errs[torch.float32], "err_bf16": errs[torch.bfloat16]})
+        del f32, w, cot32, f, cot, out, ref
+    records["conv_backward"] = rec
 
 
 def phase_kernels(cfg, batch) -> dict:
@@ -264,7 +489,10 @@ def phase_kernels(cfg, batch) -> dict:
     rec["bound_by"] = ("operations" if rec["bound_ops_ms"] > rec["bound_bytes_ms"]
                        else "bytes")
     records["fused_sparse_conv"] = rec
-    emit("kernels", conv_atol=CONV_ATOL, timing="CUDA events, L2 evicted before each call",
+    check_gather_scatter(cfg, L, B, records)
+    check_conv_backward(cfg, L, B, records)
+    emit("kernels", conv_atol=CONV_ATOL, sum_atol=SUM_ATOL, grad_rtol=GRAD_RTOL,
+         grad_rtol_bf16=GRAD_RTOL_BF16, timing="CUDA events, L2 evicted before each call",
          kernels={k: {kk: (round(vv, 5) if isinstance(vv, float) else vv)
                       for kk, vv in v.items()} for k, v in records.items()})
     return records
@@ -290,7 +518,8 @@ def phase_forward(cfg, batch):
             if not bool(torch.isfinite(out[k].float()).all()):
                 fail(f"forward output {k} is not finite")
         expected = {"fused_sparse_conv": 1 + 4 + 2 * sum(cfg.sparse.layers[:4]),
-                    "k3_map_lookup": 3, "k3_map_lookup_bits": 1}
+                    "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
+                    "gather_rows": 1, "scatter_add_rows": 2}   # token pooling
         if counts != expected:
             fail(f"kernel launches on one forward {counts} != expected {expected}")
         for _ in range(2):
@@ -311,6 +540,123 @@ def phase_forward(cfg, batch):
     return model, counts
 
 
+def _expected_train_counts(cfg, unfrozen: bool) -> dict:
+    """Kernel launches of one training step. Forward: 21 convs, 3 + 1 map
+    kernels, 1 token gather, 2 segment sums (features, counts). An unfrozen
+    encoder adds, backward: 20 convs as ``dx`` (conv0's input needs none), one
+    dy-gather per chunk of offsets per conv for ``dW``, the gather that is the
+    segment sum's backward and the scatter-add that is the token gather's."""
+    n_conv = 1 + 4 + 2 * sum(cfg.sparse.layers[:4])
+    exp = {"fused_sparse_conv": n_conv, "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
+           "gather_rows": 1, "scatter_add_rows": 2}
+    if unfrozen:
+        B = BATCH
+        chunks = 0
+        for name, lvl_in, key, _, _, c_out, count in _conv_classes(cfg):
+            K = {"map_k5": 125, "map_down": 8, "map_k3": 27}[key]
+            v_in = cfg.sparse.capacities[lvl_in]
+            chunks += count * len(sparse_conv._offset_chunks(K, B * v_in * c_out * 2))
+        exp["fused_sparse_conv"] += n_conv - 1
+        exp["gather_rows"] += chunks + 1
+        exp["scatter_add_rows"] += 1
+    return exp
+
+
+def _backward_once(cfg, state, batch) -> dict:
+    """Forward in training form + backward from the state as it stands,
+    without an update and with the generators put back: the gradients of
+    every conv kernel of the scene encoder."""
+    gens = (state.sample_generator, state.dropout_generator)
+    saved = [g.get_state() for g in gens]
+    state.model.train()
+    out = state.model(batch, generator=gens[0], train=True, dropout_generator=gens[1])
+    loss, _ = get_loss(out, batch, cfg.loss, cfg.model.situation_loss_tag)
+    state.optimizer.discard()
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in state.model.named_parameters()
+             if n.startswith("scene_encoder") and n.endswith("kernel")}
+    state.optimizer.discard()
+    for g, st in zip(gens, saved):
+        g.set_state(st)
+    torch.cuda.synchronize()
+    return grads
+
+
+def phase_train(cfg, batch) -> dict:
+    """Both training configurations at full width, B=8, bf16: 3 warm-up + 5
+    timed optimizer steps each through ``train_step``. Returns the launch
+    counts of the first unfrozen step."""
+    warmup, timed = 3, 5
+    report, unfrozen_counts = {}, {}
+    for mode, extra in (("frozen", []), ("unfrozen", ["train.frozen_prefixes="])):
+        tcfg = apply_overrides(cfg, extra)
+        model = SIG3D(tcfg, num_answers=tcfg.data.num_answers, dtype=torch.bfloat16,
+                      device=DEV)
+        init_random_weights(model, SEED)
+        state = create_train_state(tcfg, model, steps_per_epoch=1000, seed=SEED)
+        trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+        enc = {n for n, _ in model.named_parameters() if n.startswith("scene_encoder")}
+        if (mode == "frozen") != (not (enc & trainable)):
+            fail(f"train {mode}: scene encoder trainable = {bool(enc & trainable)}")
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        deterministic = None
+        if mode == "unfrozen":
+            g1, g2 = _backward_once(tcfg, state, batch), _backward_once(tcfg, state, batch)
+            if not g1 or any(not bool(torch.isfinite(g).all()) for g in g1.values()):
+                fail("train unfrozen: conv gradients missing or not finite")
+            if all(float(g.abs().max()) == 0.0 for g in g1.values()):
+                fail("train unfrozen: every conv gradient is zero")
+            diff = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+            if diff:
+                fail(f"train unfrozen: conv gradients differ between two runs from "
+                     f"one state: {diff[:4]}")
+            deterministic = len(g1)
+            del g1, g2
+        losses = []
+        reset_counts()                        # just before the main path ...
+        m = train_step(tcfg, state, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()                # ... and just after
+        expected = _expected_train_counts(tcfg, mode == "unfrozen")
+        if counts != expected:
+            fail(f"train {mode}: kernel launches on one step {counts} != expected {expected}")
+        losses.append(float(m["loss"]))
+        for _ in range(warmup - 1):
+            losses.append(float(train_step(tcfg, state, batch)["loss"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ms = [train_step(tcfg, state, batch) for _ in range(timed)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / timed
+        losses += [float(m["loss"]) for m in ms]
+        if not all(np.isfinite(losses)) or any(float(m["grads_finite"]) != 1.0 for m in ms):
+            fail(f"train {mode}: a loss is not finite: {losses}")
+        moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+        if moved - trainable:
+            fail(f"train {mode}: frozen parameters changed: {sorted(moved - trainable)[:4]}")
+        still = [n for n in trainable - moved if before[n].dim() >= 2]
+        if still:
+            fail(f"train {mode}: trainable matrices did not move: {still[:4]}")
+        if state.step != warmup + timed or state.optimizer.updates != warmup + timed:
+            fail(f"train {mode}: {state.step} steps, {state.optimizer.updates} updates")
+        report[mode] = {
+            "steps": warmup + timed, "loss_first": losses[0], "loss_last": losses[-1],
+            "trainable_tensors": len(trainable), "frozen_tensors": len(before) - len(trainable),
+            "moved_tensors": len(moved), "frozen_bit_unchanged": True,
+            "launches_per_step": counts, "seconds_per_step": round(dt, 5),
+            "samples_per_s": round(BATCH / dt, 3),
+            "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)}
+        if deterministic is not None:
+            report[mode]["conv_gradients_bit_equal_across_two_runs"] = deterministic
+            unfrozen_counts = counts
+        del model, state, before
+        torch.cuda.empty_cache()
+    emit("train", batch_size=BATCH, dtype="bfloat16", warmup_steps=warmup,
+         timed_steps=timed, **report)
+    return unfrozen_counts
+
+
 def phase_serving(cfg, model, batch):
     """Two scenes encoded once each, six questions per scene; each scene's
     first answer is held against the full forward on the same question and
@@ -320,7 +666,7 @@ def phase_serving(cfg, model, batch):
     rng = np.random.RandomState(SEED + 2)
     gen = torch.Generator().manual_seed(SEED + 3)
     cache = SceneCache(model, device=DEV)
-    worst = 0.0
+    worst = worst_same = 0.0
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -331,6 +677,11 @@ def phase_serving(cfg, model, batch):
                                   cfg.model.num_scene_tokens, gen, DEV)
         sid = f"scene{s}"
         cache.encode(sid, scene, sample_draws=draws)
+        with torch.inference_mode():       # two encodes of one scene: bit-equal
+            t1, p1, _ = model.encode_scene(scene, draws)
+            t2, p2, _ = model.encode_scene(scene, draws)
+        if not (torch.equal(t1, t2) and torch.equal(p1, p2)):
+            fail("two encodes of one scene differ: token pooling is not deterministic")
         q = {"s_ids": batch["s_ids"][s:s + 1].expand(n_q, L),
              "s_mask": batch["s_mask"][s:s + 1].expand(n_q, L),
              "q_ids": torch.as_tensor(rng.randint(4, 30000, (n_q, L)).astype(np.int32)),
@@ -349,11 +700,16 @@ def phase_serving(cfg, model, batch):
             full = model({**scene, **one}, sample_draws=draws)["answer_scores"][0]
             first = cache.answer(sid, one)["answer_scores"][0]
             scale = max(1.0, float(full.abs().max()))
-            worst = max(worst, float((first - full).abs().max()) / scale)
+            worst_same = max(worst_same, float((first - full).abs().max()) / scale)
             worst = max(worst, float((ans["answer_scores"][0] - full).abs().max()) / scale)
+    if not worst_same <= SERVE_SAME_RTOL:
+        fail(f"serving (one question) differs from the full forward on the same "
+             f"question: {worst_same} > {SERVE_SAME_RTOL}")
     if not worst <= SERVE_RTOL:
         fail(f"serving answers differ from the full forward: {worst} > {SERVE_RTOL}")
     emit("serving", scenes=n_scenes, questions_per_scene=n_q,
+         two_encodes_bit_equal=True,
+         max_rel_diff_same_batch_size=worst_same, tolerance_same_batch_size=SERVE_SAME_RTOL,
          max_rel_diff_vs_full_forward=worst, tolerance=SERVE_RTOL,
          launches=counts, seconds=round(dt, 4),
          questions_per_s=round(n_scenes * n_q / dt, 3))
@@ -384,14 +740,36 @@ def phase_reference():
         errs[k] = float((got[k].cpu().float() - want[k].float()).abs().max())
         if not errs[k] <= SMALL_ATOL:
             fail(f"small-model {k}: card vs CPU max abs err {errs[k]} > {SMALL_ATOL}")
+    # gradients of the same small model, encoder unfrozen, evaluation form
+    # (dropout off, so both devices see the same function)
+    tcfg = apply_overrides(cfg, ["train.frozen_prefixes=", "model.lang_freeze=none"])
+    grads = {}
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        create_train_state(tcfg, m, 10, seed=SEED)     # sets requires_grad
+        b = m._to_device(batch_cpu)
+        loss, _ = get_loss(m(b, sample_draws=draws), b, tcfg.loss,
+                           tcfg.model.situation_loss_tag)
+        loss.backward()
+        grads[name] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                       if p.grad is not None}
+    torch.cuda.synchronize()
+    if set(grads["cpu"]) != set(grads["gpu"]) or not grads["cpu"]:
+        fail("small-model gradients: card and CPU reach different parameters")
+    gerr, gname = max((float((grads["gpu"][n] - g).abs().max()), n)
+                      for n, g in grads["cpu"].items())
+    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+    if not gerr <= SMALL_ATOL * max(1.0, gmax):
+        fail(f"small-model gradient {gname}: card vs CPU max abs err {gerr} > "
+             f"{SMALL_ATOL} x max(1, {gmax})")
     emit("reference", what="small f32 SIG3D, CUDA kernels vs plain versions on the CPU",
-         atol=SMALL_ATOL, max_abs_err=errs, launches=read_counts())
+         atol=SMALL_ATOL, max_abs_err=errs, gradients_compared=len(grads["cpu"]),
+         gradient_max_abs_err=gerr, gradient_max_abs=gmax, launches=read_counts())
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
-                    "device,kernels,forward,serving,reference")
+                    "device,kernels,forward,train,serving,reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -399,16 +777,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
     phases = [p for p in args.only.split(",") if p] or \
-        ["device", "kernels", "forward", "serving", "reference"]
+        ["device", "kernels", "forward", "train", "serving", "reference"]
     full_run = not args.only
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
 
     info = phase_device()
     cfg = full_width_cfg()
     batch, _, _ = make_scene_batch(cfg, BATCH, np.random.RandomState(SEED), DEV)
-    records, counts, model = {}, {}, None
+    records, counts, train_counts, model = {}, {}, {}, None
     if "kernels" in phases:
         records = phase_kernels(cfg, batch)
+    if "train" in phases:
+        train_counts = phase_train(cfg, batch)
     if "forward" in phases or "serving" in phases:
         model, counts = phase_forward(cfg, batch)
     if "serving" in phases:
@@ -419,24 +799,38 @@ def main() -> int:
     if not full_run:
         return 0
 
-    sources = {"fused_sparse_conv": ("situation3d_tpu_torch/csrc/fused_conv.cu",
-                                     "situation3d_tpu/ops/pallas/fused_conv.py:192"),
-               "k3_map_lookup": ("situation3d_tpu_torch/csrc/map_lookup.cu",
-                                 "situation3d_tpu/ops/pallas/map_lookup.py:80"),
-               "k3_map_lookup_bits": ("situation3d_tpu_torch/csrc/map_bits.cu",
-                                      "situation3d_tpu/ops/pallas/map_bits.py:161")}
+    # name: (source, TPU kernel it replaces, path its launches are counted on)
+    sources = {
+        "fused_sparse_conv": ("situation3d_tpu_torch/csrc/fused_conv.cu",
+                              "situation3d_tpu/ops/pallas/fused_conv.py:192", counts),
+        "k3_map_lookup": ("situation3d_tpu_torch/csrc/map_lookup.cu",
+                          "situation3d_tpu/ops/pallas/map_lookup.py:80", counts),
+        "k3_map_lookup_bits": ("situation3d_tpu_torch/csrc/map_bits.cu",
+                               "situation3d_tpu/ops/pallas/map_bits.py:161", counts),
+        "gather_rows": ("situation3d_tpu_torch/csrc/gather_rows.cu",
+                        "situation3d_tpu/ops/pallas/gather.py:39", train_counts),
+        "scatter_add_rows": ("situation3d_tpu_torch/csrc/gather_rows.cu",
+                             "situation3d_tpu/ops/pallas/gather.py:82", train_counts)}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path_counts) in sources.items():
         r = records[name]
-        if counts.get(name, 0) < 1:
+        if path_counts.get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "library_note": "no single PyTorch call computes this function",
-            "per": "sum over this kernel's launches in one B=%d forward" % BATCH})
+        on_train = path_counts is train_counts
+        k = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+             "launches": path_counts[name], "max_abs_err": r["max_abs_err"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+             "library_note": r.get("library",
+                                   "no single PyTorch call computes this function"),
+             "path": ("one B=%d training step, scene encoder unfrozen" if on_train
+                      else "one B=%d forward") % BATCH,
+             "per": "sum over this kernel's launches on that path"}
+        if name == "fused_sparse_conv":
+            k["launches_train_step_unfrozen"] = train_counts[name]
+            k["backward_dx_ms"] = records["conv_backward"]["dx_ms"]
+            k["backward_dx_launches"] = train_counts[name] - counts[name]
+        kernels.append(k)
     print(info["card"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Configuration tree of the port: its own copy of the groups the ported
 slice reads from ``situation3d_tpu/config.py`` (``DataConfig``,
-``SparseConfig``, ``ModelConfig``, ``LangConfig``, ``Config``) with the same
+``SparseConfig``, ``ModelConfig``, ``LangConfig``, ``LossConfig``,
+``TrainConfig``, ``LogConfig``, ``Config``) with the same
 field names and defaults, so one YAML file or one list of dot-key overrides
 configures both packages.
 
@@ -12,7 +13,8 @@ formulation per op: every map-driven conv goes through the fused
 gather-GEMM kernel, conv0 runs on its k5 map, and the k3 maps come from the
 two map kernels (``sparse/minkunet.py:build_unet_plan`` says which level
 goes to which). ``dense_lookup`` and ``dense_downsample`` must be on: the
-sort-based plan construction is not ported yet.
+sort-based plan construction is not ported yet. ``gather_bwd`` is ignored
+too: the gather-only conv backward is the only one the port has.
 """
 from __future__ import annotations
 
@@ -126,12 +128,72 @@ class LangConfig:
 
 
 @dataclass
+class LossConfig:
+    """Loss composition."""
+    answer_weight: float = 1.0
+    aux_situation_weight: float = 1.0
+    pos_weight: float = 1.0
+    rot_weight: float = 1.0
+    vote_weight: float = 0.0           # detection off by default
+    objectness_weight: float = 0.0
+    box_weight: float = 0.0
+    sem_cls_weight: float = 0.0
+    amplifier: float = 10.0            # loss *= 10
+    answer_loss: str = "bce"           # "bce" (answer_cat_scores) | "ce" (answer_cat)
+
+
+@dataclass
+class TrainConfig:
+    """Trainer."""
+    batch_size: int = 32
+    epochs: int = 40
+    lr: float = 2e-5
+    weight_decay: float = 0.05
+    lr_schedule: str = "step"          # "step" | "multistep" | "warmup_cosine" | "warmup_step"
+    lr_decay_steps: Tuple[int, ...] = (15, 20, 25)   # epochs
+    lr_decay_rate: float = 0.1
+    warmup_steps: int = 1000
+    min_lr: float = 1e-5
+    grad_clip_value: float = 1.0       # clip by value before AdamW
+    grad_accum_steps: int = 1
+    bn_momentum_init: float = 0.5
+    bn_momentum_decay: float = 0.5
+    bn_momentum_step: int = 20
+    val_every_steps: int = 1000
+    # iteration-based runs of the 3D-LLM trainer; not read by this slice
+    max_iters: int = 0
+    iters_per_inner_epoch: int = 0
+    log_every_steps: int = 50
+    ckpt_dir: str = "outputs/ckpt"
+    ckpt_keep: int = 3
+    seed: int = 42
+    frozen_prefixes: Tuple[str, ...] = ("scene_encoder",)
+    bf16: bool = True                  # bf16 compute, float32 parameters
+    donate_state: bool = True          # buffer donation of a jitted step: read and ignored
+    # "loss": skip the update when the loss is non-finite; "full": also when
+    # any trainable gradient is; "off": no guard
+    nan_guard: str = "loss"
+
+
+@dataclass
+class LogConfig:
+    use_wandb: bool = False
+    use_tensorboard: bool = False
+    project: str = "situation3d_tpu"
+    log_dir: str = "outputs/logs"
+    profile_steps: Tuple[int, int] = (0, 0)  # (start, stop) profiler window; (0,0)=off
+
+
+@dataclass
 class Config:
-    """Root config (the groups the ported slice reads)."""
+    """Root config (the groups the ported slices read)."""
     data: DataConfig = field(default_factory=DataConfig)
     sparse: SparseConfig = field(default_factory=SparseConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     lang: LangConfig = field(default_factory=LangConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    log: LogConfig = field(default_factory=LogConfig)
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +295,8 @@ def apply_overrides(cfg: Config, options: List[str]) -> Config:
 
 def load_config(path: Optional[str] = None, options: Optional[List[str]] = None) -> Config:
     """Load a Config from a YAML file (optional) plus dot-key overrides.
-    Groups of the reference's tree that the port does not have yet (loss,
-    train, mesh, ...) are skipped."""
+    Groups of the reference's tree that the port does not have yet (mesh,
+    blip2, eval) are skipped."""
     cfg = Config()
     if path:
         import yaml  # only needed to read a file
@@ -245,3 +307,15 @@ def load_config(path: Optional[str] = None, options: Optional[List[str]] = None)
     if options:
         cfg = apply_overrides(cfg, options)
     return cfg
+
+
+def to_dict(cfg: Any) -> Any:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write the configuration as JSON (a subset of YAML, so ``load_config``
+    reads it back where ``yaml`` is installed)."""
+    import json
+    with open(path, "w") as fh:
+        json.dump(to_dict(cfg), fh, indent=2)

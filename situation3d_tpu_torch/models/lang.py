@@ -1,7 +1,10 @@
 """Language encoder for SIG3D (port of ``situation3d_tpu/models/lang.py``):
 an MPNet-style transformer written in plain PyTorch. Situation ``s`` and
 question ``q`` are encoded separately with shared weights; outputs are
-``[B, L, H]`` plus pad masks (True == padding).
+``[B, L, H]`` plus pad masks (True == padding). The reference's MPNet takes
+a ``deterministic`` flag and drops nowhere, so there is no dropout here in
+training either; which layers train is the optimizer's business
+(``train/optim.py``).
 """
 from __future__ import annotations
 

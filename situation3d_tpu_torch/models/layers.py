@@ -1,8 +1,11 @@
 """Dense / embedding / layer-norm layers with float32 parameters and a
 separate compute dtype, the convention of the reference's layers: inputs and
 parameters are cast to ``dtype`` for the product, normalization statistics
-are taken in float32."""
+are taken in float32. ``dropout`` draws its mask from an explicit
+``torch.Generator`` (``F.dropout`` takes none)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,3 +41,18 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(self.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: in training each element is kept with probability
+    ``1 - p`` and scaled by ``1 / (1 - p)``; the identity otherwise. The mask
+    is drawn where ``generator`` lives (on ``x``'s device without one), so
+    one seeded generator reproduces a step."""
+    if not train or p <= 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    where = generator.device if generator is not None else x.device
+    keep = torch.rand(x.shape, generator=generator, device=where) >= p
+    return x * keep.to(x.device) * (1.0 / (1.0 - p))

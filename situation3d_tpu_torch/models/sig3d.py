@@ -1,4 +1,4 @@
-"""SIG3D — situated 3D question answering model, inference forward (port of
+"""SIG3D — situated 3D question answering model (port of
 ``situation3d_tpu/models/sig3d.py``):
 language encoder -> sparse 3D encoder (MinkUNet18A bottleneck) -> situated
 token pooling -> MCAN SA/SGA fusion -> situation heads + AttFlat -> answer
@@ -6,9 +6,12 @@ classifier.
 
 Submodule names follow the reference's parameter tree (``lang_net``,
 ``scene_encoder``, ``enc_s0``, ``dec_q1``, ``answer_cls_fc1``, ...), so
-``ckpt_compat/from_jax.py`` carries weights across mechanically. Evaluation
-form: dropout is the identity and the scene encoder's batch norms use
-running statistics.
+``ckpt_compat/from_jax.py`` carries weights across mechanically.
+``forward(..., train=True)`` turns on dropout (MCAN, AttFlat, the heads; the
+reference's MPNet drops nowhere); the scene encoder's batch norms use running
+statistics in training too, as in the reference, and while none of the
+encoder's parameters requires a gradient the scene tower runs under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -22,8 +25,12 @@ from torch import nn
 from situation3d_tpu_torch.config import Config
 from situation3d_tpu_torch.device import resolve_device
 from situation3d_tpu_torch.models.lang import LangModule
-from situation3d_tpu_torch.models.layers import Dense
+from situation3d_tpu_torch.models.layers import Dense, dropout
 from situation3d_tpu_torch.models.mcan import SA, SGA, AttFlat
+from situation3d_tpu_torch.ops.cuda.gather_rows import (GatherRows,
+                                                        ScatterAddRows,
+                                                        scatter_add_rows,
+                                                        sort_segments)
 from situation3d_tpu_torch.ops.voxelize import voxelize_torch
 from situation3d_tpu_torch.sparse.minkunet import MinkUNet, build_unet_plan
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
@@ -64,19 +71,23 @@ def situated_token_pool(coords: torch.Tensor, feats: torch.Tensor,
     random sample without replacement) and ``dup`` int32 [B, N] picks the
     random duplicates that pad a scene with fewer than N columns.
     Returns (tok_feats [B, N, C], positions float32 [B, N, 2] in meters).
+
+    The segment sums and the token gather go through
+    ``ops/cuda/gather_rows.py`` (deterministic on the card, and each the
+    other's backward, so the gradient reaches ``feats``).
     """
     B, V, C = feats.shape
     xy3 = torch.div(coords, stride, rounding_mode="floor").clone()
     xy3[..., 2] = 0                                  # collapse z before dedup
     uc, um, inv, nu = voxelize_torch(xy3, mask, capacity=V)
-    inv = inv.to(torch.int64)
     mf = mask.to(torch.float32)
-    sums = torch.zeros(B, V, C, dtype=torch.float32, device=feats.device)
-    sums.scatter_add_(1, inv[..., None].expand(B, V, C),
-                      feats.float() * mf[..., None])
-    counts = torch.zeros(B, V, dtype=torch.float32, device=feats.device)
-    counts.scatter_add_(1, inv, mf)
-    mean = sums / counts.clamp(min=1.0)[..., None]
+    # padding voxels carry weight 0: drop them (index -1) instead of summing
+    # their zeros into slot 0, which would make one long segment
+    inv = torch.where(mask, inv, -1)
+    segments = sort_segments(inv, V)
+    sums = ScatterAddRows.apply(feats.float() * mf[..., None], inv, V, segments)
+    counts = scatter_add_rows(mf[..., None], inv, V, segments)
+    mean = sums / counts.clamp(min=1.0)
 
     sort_key = torch.where(um, sort_uniform, 2.0)
     perm = torch.argsort(sort_key, dim=1, stable=True)
@@ -84,14 +95,14 @@ def situated_token_pool(coords: torch.Tensor, feats: torch.Tensor,
     slot = torch.arange(num_tokens, device=feats.device)[None]
     pick = torch.where(slot < safe_nu, slot % V, dup.to(torch.int64) % safe_nu)
     token_idx = torch.gather(perm, 1, pick)                     # [B, N]
-    tok_feats = torch.gather(mean, 1, token_idx[..., None].expand(B, num_tokens, C))
+    tok_feats = GatherRows.apply(mean, token_idx.to(torch.int32))
     tok_xy = torch.gather(uc[..., :2], 1, token_idx[..., None].expand(B, num_tokens, 2))
     positions = ((tok_xy * stride).float() + stride / 2.0) * voxel_size
     return tok_feats.to(feats.dtype), positions
 
 
 class SIG3D(nn.Module):
-    """SIG3D, inference forward. ``forward`` takes a fixed-shape batch dict:
+    """SIG3D. ``forward`` takes a fixed-shape batch dict:
 
       s_ids, s_mask, q_ids, q_mask: int [B, L] tokenized situation/question
       voxel_coords int32 [B, V, 3], voxel_feats [B, V, 3], voxel_mask [B, V]
@@ -119,11 +130,12 @@ class SIG3D(nn.Module):
         self.pos_embed_fc2 = Dense(128, mc.scene_feat_dim, dtype)
         self.lang_feat_linear = Dense(cfg.lang.hidden_size, H, dtype)
         self.scene_feat_linear = Dense(mc.scene_feat_dim, H, dtype)
+        pd = mc.mcan_dropout
         for i in range(mc.mcan_num_layers):
-            self.add_module(f"enc_s{i}", SA(H, mc.mcan_num_heads, dtype))
-            self.add_module(f"enc_q{i}", SA(H, mc.mcan_num_heads, dtype))
-            self.add_module(f"dec_s{i}", SGA(H, mc.mcan_num_heads, dtype))
-            self.add_module(f"dec_q{i}", SGA(H, mc.mcan_num_heads, dtype))
+            self.add_module(f"enc_s{i}", SA(H, mc.mcan_num_heads, dtype, pd))
+            self.add_module(f"enc_q{i}", SA(H, mc.mcan_num_heads, dtype, pd))
+            self.add_module(f"dec_s{i}", SGA(H, mc.mcan_num_heads, dtype, pd))
+            self.add_module(f"dec_q{i}", SGA(H, mc.mcan_num_heads, dtype, pd))
         if mc.predict_situation:
             self.position_head_fc1 = Dense(H, 256, dtype)
             self.position_head_fc2 = Dense(256, 1, dtype)
@@ -153,6 +165,13 @@ class SIG3D(nn.Module):
     def device(self) -> torch.device:
         return self.answer_cls_fc2.weight.device
 
+    def train(self, mode: bool = True):
+        """The scene encoder stays in evaluation form whatever the mode."""
+        super().train(mode)
+        if hasattr(self, "scene_encoder"):
+            self.scene_encoder.eval()
+        return self
+
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
                 if k != "plan"}
@@ -169,12 +188,15 @@ class SIG3D(nn.Module):
         x = SparseVoxels(coords=b["voxel_coords"].to(torch.int32),
                          feats=b["voxel_feats"].to(self.dtype),
                          mask=b["voxel_mask"].to(torch.bool), stride=1)
-        plan = build_unet_plan(x.coords, x.mask, cfg.sparse.capacities,
-                               cfg.sparse.grid_extent,
-                               pallas_map=cfg.sparse.pallas_map,
-                               pallas_map_bits=cfg.sparse.pallas_map_bits,
-                               device=self.device)
-        bott = self.scene_encoder(x, plan)["feat_bottleneck"]
+        with torch.no_grad():                         # integer bookkeeping
+            plan = build_unet_plan(x.coords, x.mask, cfg.sparse.capacities,
+                                   cfg.sparse.grid_extent,
+                                   pallas_map=cfg.sparse.pallas_map,
+                                   pallas_map_bits=cfg.sparse.pallas_map_bits,
+                                   device=self.device)
+        frozen = not any(p.requires_grad for p in self.scene_encoder.parameters())
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            bott = self.scene_encoder(x, plan)["feat_bottleneck"]
         N = cfg.model.num_scene_tokens
         if sample_draws is None:
             sample_draws = make_sample_draws(bott.batch_size, bott.capacity, N,
@@ -185,12 +207,20 @@ class SIG3D(nn.Module):
             cfg.data.voxel_size, sort_uniform, dup)
         return tok_feats, positions, plan["overflow"]
 
-    def _head(self, x, name):
-        return getattr(self, f"{name}_fc2")(F.gelu(getattr(self, f"{name}_fc1")(x)))
-
     def forward(self, batch: Dict[str, Any], sample_draws=None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None, train: bool = False,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        """``train`` turns dropout on; its masks come from
+        ``dropout_generator`` (``generator`` when that is not given), the
+        token sampling from ``sample_draws`` or ``generator``."""
         cfg = self.cfg
+        dgen = dropout_generator if dropout_generator is not None else generator
+
+        def head(x, name, pdrop=0.1):
+            x = F.gelu(getattr(self, f"{name}_fc1")(x))
+            return getattr(self, f"{name}_fc2")(dropout(x, pdrop, train, dgen))
+
         mc = cfg.model
         tag = mc.situation_loss_tag
         out: Dict[str, Any] = {}
@@ -255,39 +285,40 @@ class SIG3D(nn.Module):
         # ---- MCAN fusion ------------------------------------------------
         L = mc.mcan_num_layers
         for i in range(L):
-            s_feat = getattr(self, f"enc_s{i}")(s_feat, s_pad)
+            s_feat = getattr(self, f"enc_s{i}")(s_feat, s_pad, train, dgen)
         for i in range(L):
-            q_feat = getattr(self, f"enc_q{i}")(q_feat, q_pad)
+            q_feat = getattr(self, f"enc_q{i}")(q_feat, q_pad, train, dgen)
         if have_tokens:
             for i in range(L):
-                scene_feat = getattr(self, f"dec_s{i}")(scene_feat, s_feat, None, s_pad)
+                scene_feat = getattr(self, f"dec_s{i}")(scene_feat, s_feat, None,
+                                                        s_pad, train, dgen)
             for i in range(L):
-                scene_feat = getattr(self, f"dec_q{i}")(scene_feat, q_feat, None, q_pad)
+                scene_feat = getattr(self, f"dec_q{i}")(scene_feat, q_feat, None,
+                                                        q_pad, train, dgen)
             out["att_feat_ori"] = scene_feat
             if mc.predict_situation:
                 # per-token situation heads (kept for parity with the
                 # reference; no loss reads them)
                 out["pred_pos_likelihood"] = torch.sigmoid(
-                    self._head(scene_feat, "position_head")).squeeze(-1)
-                out["pred_rotation"] = self._head(scene_feat, "rotation_head")
+                    head(scene_feat, "position_head")).squeeze(-1)
+                out["pred_rotation"] = head(scene_feat, "rotation_head")
 
         # ---- flatten + heads --------------------------------------------
-        s_flat, out["satt"] = self.attflat_s(s_feat, s_pad)
-        q_flat, out["qatt"] = self.attflat_q(q_feat, q_pad)
+        s_flat, out["satt"] = self.attflat_s(s_feat, s_pad, train, dgen)
+        q_flat, out["qatt"] = self.attflat_q(q_feat, q_pad, train, dgen)
         if have_tokens:
-            v_flat, out["oatt"] = self.attflat_visual(scene_feat, None)
+            v_flat, out["oatt"] = self.attflat_visual(scene_feat, None, train, dgen)
             fuse = torch.cat([s_flat, q_flat, v_flat], dim=1)
         else:
             fuse = torch.cat([s_flat, q_flat], dim=1)
 
         if mc.use_situation and have_tokens:
             if "__class__" in tag:
-                out["aux_scores"] = self._head(scene_feat, "aux_cls")
+                out["aux_scores"] = head(scene_feat, "aux_cls")
             else:
-                out["aux_scores"] = self._head(
-                    torch.cat([s_flat, v_flat], dim=1), "aux_reg")
+                out["aux_scores"] = head(torch.cat([s_flat, v_flat], dim=1), "aux_reg")
 
-        out["answer_scores"] = self._head(fuse, "answer_cls").float()
+        out["answer_scores"] = head(fuse, "answer_cls", mc.answer_pdrop).float()
         return out
 
 

@@ -2,8 +2,10 @@
 sum): CUDA kernel + plain version.
 
 Source note. Replaces the TPU kernel ``situation3d_tpu/ops/pallas/
-fused_conv.py`` (``_fused_kernel`` / ``fused_sparse_conv``, forward; its
-backward belongs to the training slice). On an H100 the k3 convs at wide
+fused_conv.py`` (``_fused_kernel`` / ``fused_sparse_conv``). The same kernel
+serves the backward: ``sparse/conv.py`` runs it on the transpose map with
+transposed weights for ``dx``, so the weights are detached here and the
+``autograd.Function`` there owns the graph. On an H100 the k3 convs at wide
 channels are bound by operations and conv0 / the k2 convs by the map and
 output bytes (``chip_smoke.py`` works the bound out per shape). The design
 (``csrc/fused_conv.cu``) treats the sum over offsets and channels as one
@@ -11,8 +13,11 @@ contraction of length ``K*C_in`` whose left operand is gathered: a block
 owns a tile of output voxels of one sample, loops over the contraction
 inside the block, stages gathered rows and weights in shared memory,
 accumulates in f32 registers, and skips chunks in which every entry is a
-miss. Any ``C_in`` works, including conv0's 3. The product is computed in
-the kernel on the CUDA cores; tensor cores are later work. The TPU kernel's
+miss. bfloat16 inputs with ``C_in % 32 == 0``, ``C_out % 8 == 0``, ``K <= 32`` (every
+k2 / k3 conv of the UNet) multiply on the tensor cores (``mma.sync`` through
+the wmma API, f32 accumulators); any other shape, conv0's ``C_in = 3`` and
+float32 included, takes the CUDA-core kernel. wgmma, TMA and cp.async
+pipelines are later work. The TPU kernel's
 packed 128-lane table rows, lane-select masks and (B, block, K) sequential
 grid have no counterpart here.
 """

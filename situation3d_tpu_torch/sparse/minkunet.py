@@ -8,6 +8,12 @@
 The network stops at the bottleneck: nothing on the QA path reads the
 decoder, and eager PyTorch would pay for it. The decoder tail and the
 ``final`` head come with a later slice.
+
+Gradients: conv0 and every k3 conv are same-coords odd-cube convs and take
+the gather-only backward on their own map (``symmetric_bwd``); the k2 down
+convs take it on the level's ``map_up`` (``transpose_map``). This is the
+reference's ``sparse.gather_bwd=true`` routing and the only backward the port
+has, so that field joins the routing fields it reads and ignores.
 """
 from __future__ import annotations
 
@@ -132,9 +138,11 @@ class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, planes: int, kernel_volume: int = 27,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = SparseConv(in_channels, planes, kernel_volume, dtype)
+        self.conv1 = SparseConv(in_channels, planes, kernel_volume, dtype,
+                                symmetric_bwd=True)
         self.norm1 = SparseBatchNorm(planes, dtype=dtype)
-        self.conv2 = SparseConv(planes, planes, kernel_volume, dtype)
+        self.conv2 = SparseConv(planes, planes, kernel_volume, dtype,
+                                symmetric_bwd=True)
         self.norm2 = SparseBatchNorm(planes, dtype=dtype)
         if in_channels != planes:
             self.downsample_conv = SparseConv1x1(in_channels, planes, dtype)
@@ -169,7 +177,8 @@ class ResLayer(nn.Module):
 
 
 class MinkUNet(nn.Module):
-    """MinkUNet18A encoder half, evaluation mode. Submodule names follow the
+    """MinkUNet18A encoder half; its batch norms are always in evaluation
+    form. Submodule names follow the
     reference's parameter tree (``conv0p1s1``, ``bn0``, ``conv1p1s2``, ...,
     ``block4``)."""
 
@@ -186,7 +195,8 @@ class MinkUNet(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         d = cfg.init_dim
-        self.conv0p1s1 = SparseConv(cfg.in_channels, d, 125, dtype)
+        self.conv0p1s1 = SparseConv(cfg.in_channels, d, 125, dtype,
+                                    symmetric_bwd=True)
         self.bn0 = SparseBatchNorm(d, dtype=dtype)
         ch = d
         for i in range(1, 5):
@@ -203,7 +213,8 @@ class MinkUNet(nn.Module):
         h = sparse_relu(self.bn0(h))
         for i in range(1, 5):
             conv = getattr(self, f"conv{i}p{STRIDES[i - 1]}s2")
-            h = conv(h, L[i]["map_down"], L[i]["coords"], L[i]["mask"], STRIDES[i])
+            h = conv(h, L[i]["map_down"], L[i]["coords"], L[i]["mask"], STRIDES[i],
+                     transpose_map=L[i - 1]["map_up"])
             h = sparse_relu(getattr(self, f"bn{i}")(h))
             h = getattr(self, f"block{i}")(h, L[i]["map_k3"])
         return {"feat_bottleneck": h}   # stride 16

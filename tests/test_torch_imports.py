@@ -23,14 +23,20 @@ PORT_MODULES = sorted(
 
 def test_port_imports_nothing_of_jax():
     """Import every port module in a fresh interpreter and look at
-    ``sys.modules``: no jax, flax, transformers, yaml, nor the JAX package."""
-    assert len(PORT_MODULES) >= 20, PORT_MODULES
+    ``sys.modules``: no jax, flax, optax, orbax, transformers, yaml, nor the
+    JAX package."""
+    assert len(PORT_MODULES) >= 30, PORT_MODULES
+    assert {"situation3d_tpu_torch.cli.train", "situation3d_tpu_torch.ops.cuda.gather_rows",
+            *(f"situation3d_tpu_torch.train.{m}" for m in (
+                "checkpoint", "logging", "losses", "metrics", "optim", "trainer"))
+            } <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         f"mods = {PORT_MODULES!r}\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'transformers', 'yaml', 'triton', 'situation3d_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers', 'yaml', 'triton', "
+        "'wandb', 'tensorboard', 'situation3d_tpu'))\n"
         "print('BAD=' + ','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
@@ -41,7 +47,8 @@ def test_port_imports_nothing_of_jax():
 
 
 @pytest.mark.parametrize("group", ["DataConfig", "SparseConfig", "ModelConfig",
-                                   "LangConfig"])
+                                   "LangConfig", "LossConfig", "TrainConfig",
+                                   "LogConfig"])
 def test_config_groups_match_reference(group):
     """Same field names, order and defaults as the reference's groups, so one
     set of overrides configures both packages."""
@@ -59,22 +66,26 @@ def test_apply_overrides_matches_reference_without_yaml():
             "sparse.capacities=[64,32,16,8,4]", "data.voxel_size=0.08",
             "sparse.pallas_map=force", "sparse.pallas_map_bits=false",
             "model.situated_reencode=true", "lang.num_layers=1",
-            "model.lang_model=mpnet", "sparse.fused_conv=true"]
+            "model.lang_model=mpnet", "sparse.fused_conv=true",
+            "train.frozen_prefixes=", "train.lr_decay_steps=2,3", "train.lr=1e-3",
+            "loss.answer_loss=ce", "log.profile_steps=(2,4)", "train.nan_guard=full"]
     j = jconfig.apply_overrides(jconfig.Config(), opts)
     t = tconfig.apply_overrides(tconfig.Config(), opts)
-    for g in ("data", "sparse", "model", "lang"):
+    for g in ("data", "sparse", "model", "lang", "loss", "train", "log"):
         assert dataclasses.asdict(getattr(j, g)) == dataclasses.asdict(getattr(t, g)), g
     with pytest.raises(KeyError):
         tconfig.apply_overrides(tconfig.Config(), ["sparse.no_such_key=1"])
 
 
-def _tiny():
-    return tconfig.apply_overrides(tconfig.Config(), [
-        "lang.num_layers=1", "lang.hidden_size=32", "lang.num_heads=2",
-        "lang.intermediate_size=64", "lang.vocab_size=64", "model.hidden_size=32",
-        "model.mcan_num_heads=2", "model.mcan_num_layers=1",
-        "sparse.capacities=64,32,16,8,4", "sparse.grid_extent=(32,32,32)",
-        "data.max_text_len=6", "data.num_answers=5"])
+_TINY = ["lang.num_layers=1", "lang.hidden_size=32", "lang.num_heads=2",
+         "lang.intermediate_size=64", "lang.vocab_size=64", "model.hidden_size=32",
+         "model.mcan_num_heads=2", "model.mcan_num_layers=1",
+         "sparse.capacities=64,32,16,8,4", "sparse.grid_extent=(32,32,32)",
+         "data.max_text_len=6", "data.num_answers=5"]
+
+
+def _tiny(extra=()):
+    return tconfig.apply_overrides(tconfig.Config(), [*_TINY, *extra])
 
 
 ENTRY_POINTS = {
@@ -100,6 +111,30 @@ def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name):
     with pytest.raises(RuntimeError, match="cuda"):
         ENTRY_POINTS[name]({})
     assert ENTRY_POINTS[name]({"device": "cpu"}) is not None
+
+
+@pytest.mark.parametrize("name", ["Trainer", "cli.train"])
+def test_training_entry_point_defaults_to_cuda_and_raises_without_a_card(name, tmp_path):
+    """The trainer runs where its model lives and the model defaults to the
+    card; the command line asks for the card unless told ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from situation3d_tpu_torch.cli import train as cli_train
+    from situation3d_tpu_torch.train.trainer import Trainer
+    dirs = [f"train.ckpt_dir={tmp_path / 'ckpt'}", f"log.log_dir={tmp_path / 'logs'}"]
+
+    def run(**kw):
+        if name == "Trainer":
+            cfg = _tiny(dirs)
+            return Trainer(cfg, ENTRY_POINTS["SIG3D"](kw), steps_per_epoch=10)
+        argv = ["--synthetic", "--max-steps", "1", "--output", str(tmp_path / "run"),
+                "--options", *_TINY, "train.batch_size=1", *dirs]
+        cli_train.main(argv + [x for k, v in kw.items() for x in (f"--{k}", v)])
+        return (tmp_path / "ckpt" / "step_1.pt").exists()
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        run()
+    assert run(device="cpu")
 
 
 def test_unported_options_say_so():

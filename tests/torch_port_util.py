@@ -98,3 +98,62 @@ def jax_sample_draws(model, variables, key, B, V, N):
             r2, (N,), 0, jnp.iinfo(jnp.int32).max)))
     return (torch.from_numpy(np.stack(us)),
             torch.from_numpy(np.stack(dups).astype(np.int32)))
+
+
+def flax_paths(model):
+    """``{port parameter name: (reference tree path, transposed)}`` for every
+    parameter of a port model, by the converter's own rules."""
+    from situation3d_tpu_torch.ckpt_compat.from_jax import _RULES
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for tensor_name, coll, leaf, transpose in _RULES.get(type(mod), ()):
+            if coll == "params":
+                out[f"{mod_name}.{tensor_name}"] = (tuple(mod_name.split(".")) + (leaf,),
+                                                    transpose)
+    return out
+
+
+def tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def port_grads_as_tree(model, grads_by_name, like):
+    """Port gradients (``name -> tensor``) laid out as the reference tree
+    ``like`` (missing leaves stay zero), transposed back where the converter
+    transposes."""
+    paths = flax_paths(model)
+    out = jax.tree_util.tree_map(lambda x: np.zeros(x.shape, np.float32), like)
+    for name, g in grads_by_name.items():
+        path, tr = paths[name]
+        node = out
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = t2n(g).T if tr else t2n(g)
+    return out
+
+
+def with_targets(rng, batch, num_answers):
+    """Adds the training / evaluation targets to a ``scene_batch``."""
+    B = len(batch["s_ids"])
+    cat = rng.randint(0, num_answers, B)
+    scores = np.eye(num_answers, dtype=np.float32)[cat]
+    scores[np.arange(B), rng.randint(0, num_answers, B)] = 1.0   # a second answer
+    return {**batch, "answer_cat_scores": scores, "answer_cat": cat.astype(np.int32),
+            "question_type": rng.randint(0, 9, B).astype(np.int32),
+            "sample_valid": np.ones(B, bool)}
+
+
+def random_variables(jmodel, batch, rng):
+    """Reference variables for ``jmodel`` without running its initializers:
+    shapes from ``jax.eval_shape``, values from numpy (fan-in scaled), then
+    ``randomize_variables``."""
+    shapes = jax.eval_shape(
+        lambda b: jmodel.init({"params": jax.random.PRNGKey(0),
+                               "sample": jax.random.PRNGKey(1)}, b, train=False), batch)
+    variables = jax.tree_util.tree_map(
+        lambda s: jnp.asarray((rng.randn(*s.shape)
+                               / np.sqrt(max(np.prod(s.shape[:-1]), 1))).astype(np.float32)),
+        shapes)
+    return randomize_variables(variables, rng)
