@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``situation3d_tpu_torch``) on one
 NVIDIA GPU: builds the CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version at the shapes the SIG3D forward and
-training step give it, then drives the port's main paths — the full-width
-SIG3D scene-QA forward, a few optimizer steps of the trainer in both training
-configurations (scene encoder frozen, and trained too) and the scene-cache
-serving form — and checks what comes out.
+each against its plain PyTorch version at the shapes the main paths give it,
+then drives the port's main paths — the full-width SIG3D scene-QA forward, a
+few optimizer steps of the trainer in both training configurations (scene
+encoder frozen, and trained too), the scene-cache serving form, and the
+full-width VoteNet detection path (forward, boxes and mAP, detection loss and
+its gradients) — and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA device, ``nvcc`` and no network. Exits non-zero when any phase
@@ -26,12 +27,17 @@ table's size; for the conv the operations are 2*C_in*C_out per map entry
 that hits a voxel in THIS run's maps. The row gather and the scatter-add
 do no arithmetic to speak of: the gather reads each distinct table row that
 THIS run's indices select once (not the whole table), the scatter-add its
-whole source; indices read once, output written once.
+whole source; indices read once, output written once. Farthest point
+sampling reads the coordinates once and writes the indices once and does
+about 10 float32 operations a point a step (67 TFLOP/s peak); both bounds lie
+far below its time, because its npoint-1 steps depend on each other: it is
+bound by the latency of a step.
 
 Launch counts. ``launches`` of the conv and the two map kernels are read
 around one forward, those of ``gather_rows`` and ``scatter_add_rows`` around
 one training step with the scene encoder unfrozen (the path that runs the
-conv backward); the counters are set to 0 just before and read just after.
+conv backward), those of ``fps`` around one VoteNet forward; the counters are
+set to 0 just before and read just after.
 """
 from __future__ import annotations
 
@@ -45,21 +51,30 @@ import numpy as np
 import torch
 
 from situation3d_tpu_torch.config import Config, apply_overrides
-from situation3d_tpu_torch.data.synthetic import make_scene_batch
+from situation3d_tpu_torch.data.scannet_preprocess import ScannetDatasetConfig
+from situation3d_tpu_torch.data.synthetic import (make_detection_batch,
+                                                  make_scene_batch)
+from situation3d_tpu_torch.eval.detection import (APCalculator,
+                                                  parse_groundtruths,
+                                                  parse_predictions)
 from situation3d_tpu_torch.eval.serving import SceneCache
 from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
                                                 make_sample_draws)
-from situation3d_tpu_torch.ops.cuda import (_build, fused_conv, gather_rows,
-                                            map_bits, map_lookup)
+from situation3d_tpu_torch.models.votenet import VoteNet
+from situation3d_tpu_torch.ops import pointnet2
+from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
+                                            gather_rows, map_bits, map_lookup)
 from situation3d_tpu_torch.ops.voxelize import voxelize_torch
 from situation3d_tpu_torch.sparse import conv as sparse_conv
 from situation3d_tpu_torch.sparse.kernel_map import build_level_grid
 from situation3d_tpu_torch.sparse.minkunet import STRIDES, build_unet_plan
+from situation3d_tpu_torch.train.detection_losses import get_detection_loss
 from situation3d_tpu_torch.train.losses import get_loss
 from situation3d_tpu_torch.train.trainer import create_train_state, train_step
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12     # float32 outside the tensor cores
 CONV_ATOL = 2e-4      # f32 accumulation in another order; outputs are O(1)
 SERVE_RTOL = 1e-2     # bf16 rounding (2^-8) when the same question is answered in a batch of 6
 SERVE_SAME_RTOL = 0.0  # same question, same batch size: pooling is deterministic, bit-equal
@@ -75,7 +90,11 @@ KERNEL_COUNTERS = {"fused_sparse_conv": (fused_conv, "launches"),
                    "k3_map_lookup": (map_lookup, "launches"),
                    "k3_map_lookup_bits": (map_bits, "launches"),
                    "gather_rows": (gather_rows, "gather_launches"),
-                   "scatter_add_rows": (gather_rows, "scatter_launches")}
+                   "scatter_add_rows": (gather_rows, "scatter_launches"),
+                   "fps": (fps, "launches")}
+DET_POINTS = 40000    # points a scene on the detection path
+DET_NPOINTS = (2048, 1024, 512, 256)
+DET_PROPOSALS = 128
 
 
 def emit(phase: str, **fields) -> None:
@@ -381,6 +400,165 @@ def check_conv_backward(cfg, L, B, records) -> None:
     records["conv_backward"] = rec
 
 
+_detection = None
+
+
+def detection_setup():
+    """(dataset config, the full-width ``VoteNet`` with seeded random
+    weights, the synthetic detection batch: 8 scenes of 40,000 points), made
+    once and shared by the ``kernels`` and ``detection`` phases."""
+    global _detection
+    if _detection is None:
+        dcfg = ScannetDatasetConfig()
+        batch = make_detection_batch(BATCH, DET_POINTS, np.random.RandomState(SEED + 20), DEV)
+        model = VoteNet(dcfg.num_class, dcfg.num_heading_bin, dcfg.num_size_cluster,
+                        dcfg.mean_size_arr, num_proposal=DET_PROPOSALS,
+                        backbone_npoints=DET_NPOINTS, device=DEV)
+        init_random_weights(model, SEED + 21, std=None)
+        _detection = (dcfg, model, batch)
+    return _detection
+
+
+def check_fps(records) -> None:
+    """``fps`` against ``fps_plain`` on the card, every index equal: at the
+    five shapes of one full-width VoteNet forward, on that forward's own
+    point sets (the cloud, its three successive samples, the votes), and on
+    the edge cases; times per shape, bound, plain ms."""
+    dcfg, model, batch = detection_setup()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    xyz = batch["point_clouds"]
+    with torch.inference_mode():
+        votes = model(xyz)["vote_xyz"]
+    sets, cur = [], xyz
+    for i, m in enumerate(DET_NPOINTS):
+        sets.append((f"sa{i + 1}", cur, m))
+        cur = pointnet2.gather_points(cur, fps.fps(cur, m))
+    sets.append(("vote_aggregation", votes, DET_PROPOSALS))
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_bytes_ms": 0.0,
+           "bound_ops_ms": 0.0, "max_abs_err": 0, "shapes": [], "edge_cases": []}
+    for name, pts, m in sets:
+        got, want = fps.fps(pts, m), fps.fps_plain(pts, m)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            bad = int((got != want).any(0).nonzero()[0])
+            fail(f"fps {name} {list(pts.shape)} -> {m}: kernel != plain version "
+                 f"from sample {bad} on")
+        Bp, Np, _ = pts.shape
+        ms = time_cuda(lambda: fps.fps(pts, m))
+        pms = time_cuda(lambda: fps.fps_plain(pts, m), iters=1, warmup=0)
+        bytes_ms = (pts.numel() * 4 + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 10.0 * (m - 1) * Np * Bp / F32_FLOPS * 1e3
+        rec["ms"] += ms
+        rec["plain_ms"] += pms
+        rec["bound_bytes_ms"] += bytes_ms
+        rec["bound_ops_ms"] += ops_ms
+        rec["bound_ms"] += max(bytes_ms, ops_ms)
+        rec["shapes"].append({
+            "name": name, "xyz": list(pts.shape), "npoint": m, "ms": round(ms, 4),
+            "us_per_step": round(ms * 1e3 / (m - 1), 3), "plain_ms": round(pms, 3),
+            "bound_ms": round(max(bytes_ms, ops_ms), 5),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "exact": True})
+    rec["bound_by"] = "operations" if rec["bound_ops_ms"] > rec["bound_bytes_ms"] else "bytes"
+    rec["note"] = ("npoint-1 dependent steps: bound by the latency of a step, far above "
+                   "both roofline bounds")
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=DEV)
+
+    lattice = torch.stack(torch.meshgrid(*[torch.arange(22.0, device=DEV)] * 3,
+                                         indexing="ij"), -1).reshape(1, -1, 3) + 1.0
+    origin = rand(3, 3000, 3) * 4 + 0.5
+    origin[0, 100:900] = 0.0
+    origin[1, 0] = 0.0
+    empty = rand(2, 9000, 3) + 0.5
+    empty[1] = 0.0
+    few = torch.zeros(2, 9001, 3, device=DEV)
+    few[:, [7, 500, 8999]] = rand(2, 3, 3) + 1.0
+    edge = [
+        ("valid_mask_long_row", xyz, 64, rand(BATCH, DET_POINTS) > 0.5),
+        ("valid_mask_short_row", sets[1][1], 64, rand(BATCH, DET_NPOINTS[0]) > 0.5),
+        ("rows_at_the_origin", origin, 96, None),
+        ("n_not_a_multiple_of_32", rand(2, 1000, 3) * 3 + 0.5, 200, None),
+        ("n_not_a_multiple_of_32_long_row", rand(2, 9001, 3) * 3 + 0.5, 100, None),
+        ("integer_lattice_ties", lattice[:, :4096].contiguous(), 300, None),
+        ("integer_lattice_ties_long_row", lattice, 300, None),
+        ("nothing_selectable", empty, 32, None),
+        ("npoint_above_selectable", few, 16, None),
+        ("npoint_above_n", rand(2, 20, 3) + 0.5, 48, None),
+        ("one_sample", rand(3, 100, 3) + 0.5, 1, None),
+        ("non_contiguous", (rand(2, 3, 700) + 0.5).transpose(1, 2), 50, None),
+    ]
+    for name, pts, m, valid in edge:
+        got, want = fps.fps(pts, m, valid), fps.fps_plain(pts, m, valid)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fps edge case {name}: kernel != plain version")
+        rec["edge_cases"].append(name)
+    if not bool((fps.fps(empty, 32)[1] == 0).all()):
+        fail("fps: a row with nothing selectable must repeat index 0")
+    for bad_call in (lambda: fps.fps(xyz.double(), 4), lambda: fps.fps(xyz[0], 4),
+                     lambda: fps.fps(xyz[:, :0], 4), lambda: fps.fps(xyz, 0)):
+        try:
+            bad_call()
+        except (TypeError, ValueError):
+            continue
+        fail("fps: the wrapper took an argument it must refuse")
+    records["fps"] = rec
+
+
+def check_detection_gathers(records) -> None:
+    """``gather_rows`` / ``scatter_add_rows`` at the shapes the VoteNet path
+    adds (12-byte coordinate rows, float32 feature rows, ``M * nsample``
+    indices with many repeats): gather exact, scatter-add within ``SUM_ATOL``
+    of the largest sum, two runs bit-equal. Times stand beside the SIG3D
+    path's totals, not in them."""
+    _, _, batch = detection_setup()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    xyz = batch["point_clouds"]
+    inds = fps.fps(xyz, DET_NPOINTS[0])
+    xyz1 = pointnet2.gather_points(xyz, inds)
+    idx1 = pointnet2.ball_query(0.2, 64, xyz, xyz1)
+    xyz2 = pointnet2.gather_points(xyz1, fps.fps(xyz1, DET_NPOINTS[1]))
+    idx2 = pointnet2.ball_query(0.4, 32, xyz1, xyz2)
+    f1 = torch.randn(BATCH, DET_NPOINTS[0], 128, generator=g, device=DEV)
+    _, nn_idx = pointnet2.three_nn(xyz1, xyz2)
+    f2 = torch.randn(BATCH, DET_NPOINTS[1], 256, generator=g, device=DEV)
+    shapes = []
+    for name, table, idx in (("sa1_centres", xyz, inds),
+                             ("sa1_group_xyz", xyz, idx1.flatten(1)),
+                             ("sa2_group_features", f1, idx2.flatten(1)),
+                             ("fp_interpolate", f2, nn_idx.flatten(1))):
+        idx = idx.contiguous()
+        got = gather_rows.gather_rows(table, idx)
+        want = gather_rows.gather_rows_plain(table, idx)
+        if not torch.equal(got, want):
+            fail(f"gather_rows {name}: kernel != plain version")
+        V = table.shape[1]
+        src = torch.randn(got.shape, generator=g, device=DEV)
+        back = gather_rows.scatter_add_rows(src, idx, V)
+        again = gather_rows.scatter_add_rows(src, idx, V)
+        ref = gather_rows.scatter_add_rows_plain(src, idx, V)
+        torch.cuda.synchronize()
+        if not torch.equal(back, again):
+            fail(f"scatter_add_rows {name}: two runs are not bit-equal")
+        err, scale = float((back - ref).abs().max()), max(1.0, float(ref.abs().max()))
+        if not err <= SUM_ATOL * scale:
+            fail(f"scatter_add_rows {name}: max abs err {err} > {SUM_ATOL} x {scale}")
+        plan = gather_rows.sort_segments(idx, V)
+        shapes.append({
+            "name": name, "table": list(table.shape), "R": idx.shape[1],
+            "gather_ms": round(time_cuda(lambda: gather_rows.gather_rows(table, idx)), 4),
+            "gather_plain_ms": round(time_cuda(
+                lambda: gather_rows.gather_rows_plain(table, idx)), 4),
+            "scatter_add_ms": round(time_cuda(
+                lambda: gather_rows.scatter_add_rows(src, idx, V)), 4),
+            "scatter_add_plain_ms": round(time_cuda(
+                lambda: gather_rows.scatter_add_rows_plain(src, idx, V)), 4),
+            "longest_segment": int((plan[1][:, 1:] - plan[1][:, :-1]).max()),
+            "scatter_add_err": err, "largest_sum": scale})
+    records["detection_gathers"] = {"shapes": shapes}
+
+
 def phase_kernels(cfg, batch) -> dict:
     """Each kernel against its plain version on the card, at the main path's
     shapes, plus timings and bounds. Returns per-kernel records (without the
@@ -491,6 +669,9 @@ def phase_kernels(cfg, batch) -> dict:
     records["fused_sparse_conv"] = rec
     check_gather_scatter(cfg, L, B, records)
     check_conv_backward(cfg, L, B, records)
+    del plan, L
+    check_fps(records)
+    check_detection_gathers(records)
     emit("kernels", conv_atol=CONV_ATOL, sum_atol=SUM_ATOL, grad_rtol=GRAD_RTOL,
          grad_rtol_bf16=GRAD_RTOL_BF16, timing="CUDA events, L2 evicted before each call",
          kernels={k: {kk: (round(vv, 5) if isinstance(vv, float) else vv)
@@ -519,7 +700,8 @@ def phase_forward(cfg, batch):
                 fail(f"forward output {k} is not finite")
         expected = {"fused_sparse_conv": 1 + 4 + 2 * sum(cfg.sparse.layers[:4]),
                     "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
-                    "gather_rows": 1, "scatter_add_rows": 2}   # token pooling
+                    "gather_rows": 1, "scatter_add_rows": 2,   # token pooling
+                    "fps": 0}
         if counts != expected:
             fail(f"kernel launches on one forward {counts} != expected {expected}")
         for _ in range(2):
@@ -548,7 +730,7 @@ def _expected_train_counts(cfg, unfrozen: bool) -> dict:
     segment sum's backward and the scatter-add that is the token gather's."""
     n_conv = 1 + 4 + 2 * sum(cfg.sparse.layers[:4])
     exp = {"fused_sparse_conv": n_conv, "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
-           "gather_rows": 1, "scatter_add_rows": 2}
+           "gather_rows": 1, "scatter_add_rows": 2, "fps": 0}
     if unfrozen:
         B = BATCH
         chunks = 0
@@ -766,10 +948,192 @@ def phase_reference():
          gradient_max_abs_err=gerr, gradient_max_abs=gmax, launches=read_counts())
 
 
+def _expected_detection_counts(backward: bool) -> dict:
+    """Kernel launches of one VoteNet forward (and, with ``backward``, of the
+    backward pass of the detection loss), worked out from the modules.
+    Sampling: sa1..sa4 and the vote aggregation, one ``fps`` each. Gathers:
+    a set-abstraction module gathers its centres, groups the coordinates and,
+    where it is given features, groups those (sa1 has none: 2; sa2..sa4 and
+    the vote aggregation: 3 each); each feature-propagation module gathers
+    once for its interpolation (fp1, fp2). Backward: one scatter-add per
+    gather whose table needs a gradient: the grouped features of sa2..sa4,
+    the two interpolations, and all three gathers of the vote aggregation
+    (the votes are computed by the network; the cloud is not)."""
+    exp = {name: 0 for name in KERNEL_COUNTERS}
+    exp["fps"] = 5
+    exp["gather_rows"] = 2 + 3 * 3 + 2 + 3
+    if backward:
+        exp["scatter_add_rows"] = 3 + 2 + 3
+    return exp
+
+
+def _detection_backward(dcfg, model, batch):
+    """Training-form forward + detection loss + backward from the state as
+    it stands. Returns (loss, loss terms, gradients by parameter name)."""
+    model.zero_grad(set_to_none=True)
+    out = model(batch["point_clouds"], train=True)
+    loss, parts = get_detection_loss({**out, **batch}, dcfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), parts, {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def phase_detection() -> dict:
+    """The full-width VoteNet path, B=8, 40,000 points a scene, float32:
+    evaluation-form forward -> boxes -> mAP, then the training form: detection
+    loss and its gradients. Returns the launch counts of one forward."""
+    dcfg, model, batch = detection_setup()
+    xyz = batch["point_clouds"]
+    B, N = xyz.shape[:2]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()                       # just before the main path ...
+        out = model(xyz)
+        torch.cuda.synchronize()
+        counts = read_counts()               # ... and just after
+        expected = _expected_detection_counts(backward=False)
+        if counts != expected:
+            fail(f"detection: kernel launches on one forward {counts} != expected {expected}")
+        shapes = {"seed_xyz": (B, DET_NPOINTS[1], 3), "seed_inds": (B, DET_NPOINTS[1]),
+                  "vote_xyz": (B, DET_NPOINTS[1], 3), "center": (B, DET_PROPOSALS, 3),
+                  "objectness_scores": (B, DET_PROPOSALS, 2),
+                  "size_residuals": (B, DET_PROPOSALS, dcfg.num_size_cluster, 3),
+                  "sem_cls_scores": (B, DET_PROPOSALS, dcfg.num_class)}
+        for k, shape in shapes.items():
+            if tuple(out[k].shape) != shape:
+                fail(f"detection: {k} has shape {tuple(out[k].shape)}, not {shape}")
+        for k, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"detection: output {k} is not finite")
+        inds = out["seed_inds"]
+        if inds.dtype != torch.int32 or int(inds.min()) < 0 or int(inds.max()) >= N:
+            fail("detection: seed_inds outside the cloud")
+        if not torch.equal(pointnet2.gather_points(xyz, inds), out["seed_xyz"]):
+            fail("detection: seed_inds do not select seed_xyz")
+        model(xyz)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(xyz)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        peak_eval = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # boxes and mAP on the host, by the port's own evaluation code
+    t0 = time.perf_counter()
+    preds = parse_predictions({k: v.cpu().numpy() for k, v in out.items()}, dcfg)
+    gts = parse_groundtruths({k: v.cpu().numpy() for k, v in batch.items()}, dcfg)
+    calc = APCalculator(0.25, dcfg.class2type)
+    calc.step(preds, gts)
+    metrics = calc.compute_metrics()
+    parse_s = time.perf_counter() - t0
+    if len(preds) != B or not 0.0 <= metrics["mAP"] <= 1.0 or sum(map(len, gts)) == 0:
+        fail(f"detection: AP flow gave {metrics}")
+
+    # training form: batch statistics, loss, gradients
+    stats_before = {n: b.clone() for n, b in model.named_buffers()
+                    if n.endswith((".mean", ".var"))}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss, parts, g1 = _detection_backward(dcfg, model, batch)
+    train_counts = read_counts()
+    expected = _expected_detection_counts(backward=True)
+    if train_counts != expected:
+        fail(f"detection: kernel launches on forward + backward {train_counts} != "
+             f"expected {expected}")
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, _, g2 = _detection_backward(dcfg, model, batch)
+    terms = {k: float(v.detach()) for k, v in parts.items()}
+    if not np.isfinite(float(loss)) or not all(np.isfinite(list(terms.values()))):
+        fail(f"detection: loss is not finite: {float(loss)} {terms}")
+    bad = [n for n, g in g1.items() if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in g1.items() if float(g.abs().max()) == 0.0]
+    if bad or zero:
+        fail(f"detection: gradients not finite {bad[:4]} or all zero {zero[:4]}")
+    diff = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    if diff:
+        fail(f"detection: gradients differ between two backward passes from one "
+             f"state: {diff[:4]}")
+    still = [n for n, b in model.named_buffers()
+             if n in stats_before and torch.equal(b, stats_before[n])]
+    if still or not stats_before:
+        fail(f"detection: running batch-norm statistics did not move: {still[:4]}")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        _detection_backward(dcfg, model, batch)
+    step_s = (time.perf_counter() - t0) / 2
+    model.zero_grad(set_to_none=True)
+    emit("detection", batch_size=B, points_per_scene=N, dtype="float32",
+         backbone_npoints=list(DET_NPOINTS), proposals=DET_PROPOSALS, finite=True,
+         launches_per_forward=counts, seconds_per_forward=round(dt, 5),
+         scenes_per_s=round(B / dt, 3), peak_memory_gb_forward=round(peak_eval, 2),
+         boxes_kept=sum(map(len, preds)), ground_truth_boxes=sum(map(len, gts)),
+         mAP=metrics["mAP"], parse_and_ap_seconds=round(parse_s, 3),
+         loss=float(loss), loss_terms=terms, parameters_with_gradient=len(g1),
+         gradients_bit_equal_across_two_runs=True,
+         running_statistics_moved=len(stats_before),
+         launches_forward_backward=train_counts,
+         seconds_forward_backward=round(step_s, 5),
+         peak_memory_gb_forward_backward=round(peak_train, 2))
+    return {"forward": counts, "forward_backward": train_counts}
+
+
+def phase_reference_detection() -> None:
+    """A small VoteNet (npoints 64/32/16/8, 256 points): the card's forward
+    and gradients (CUDA kernels) against the same weights and inputs on the
+    CPU (plain versions). Index outputs equal; floats within ``SMALL_ATOL``."""
+    dcfg = ScannetDatasetConfig()
+    rng = np.random.RandomState(SEED + 7)
+    batch = make_detection_batch(2, 256, rng, "cpu", room=(1.6, 1.2, 0.8), max_boxes=4,
+                                 num_boxes=(2, 3))
+    kw = dict(num_class=dcfg.num_class, num_heading_bin=dcfg.num_heading_bin,
+              num_size_cluster=dcfg.num_size_cluster, mean_size_arr=dcfg.mean_size_arr,
+              num_proposal=8, backbone_npoints=(64, 32, 16, 8))
+    cpu = VoteNet(**kw, device="cpu")
+    init_random_weights(cpu, SEED + 8, std=None)
+    gpu = VoteNet(**kw, device=DEV)
+    gpu.load_state_dict(cpu.state_dict())
+    outs, grads = {}, {}
+    reset_counts()
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        out = m(b["point_clouds"])
+        loss, _ = get_detection_loss({**out, **b}, dcfg)
+        loss.backward()
+        outs[name] = {k: v.detach().cpu() for k, v in out.items()}
+        grads[name] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        if name == "cpu" and any(read_counts().values()):
+            fail("a CPU forward launched a CUDA kernel")
+    torch.cuda.synchronize()
+    errs = {}
+    for k, want in outs["cpu"].items():
+        got = outs["gpu"][k]
+        if not want.is_floating_point():
+            if not torch.equal(got, want):
+                fail(f"small VoteNet {k}: card and CPU indices differ")
+            continue
+        errs[k] = float((got - want).abs().max())
+        if not errs[k] <= SMALL_ATOL:
+            fail(f"small VoteNet {k}: card vs CPU max abs err {errs[k]} > {SMALL_ATOL}")
+    gerr, gname = max((float((grads["gpu"][n] - g).abs().max()), n)
+                      for n, g in grads["cpu"].items())
+    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+    if not gerr <= SMALL_ATOL * max(1.0, gmax):
+        fail(f"small VoteNet gradient {gname}: card vs CPU max abs err {gerr} > "
+             f"{SMALL_ATOL} x max(1, {gmax})")
+    emit("reference_detection",
+         what="small f32 VoteNet, CUDA kernels vs plain versions on the CPU",
+         atol=SMALL_ATOL, seed_inds_equal=True, max_abs_err=errs,
+         gradients_compared=len(grads["cpu"]), gradient_max_abs_err=gerr,
+         gradient_max_abs=gmax, launches=read_counts())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
-                    "device,kernels,forward,train,serving,reference")
+                    "device,kernels,forward,train,serving,detection,reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -777,14 +1141,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     phases = [p for p in args.only.split(",") if p] or \
-        ["device", "kernels", "forward", "train", "serving", "reference"]
+        ["device", "kernels", "forward", "train", "serving", "detection", "reference"]
     full_run = not args.only
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
 
     info = phase_device()
     cfg = full_width_cfg()
     batch, _, _ = make_scene_batch(cfg, BATCH, np.random.RandomState(SEED), DEV)
-    records, counts, train_counts, model = {}, {}, {}, None
+    records, counts, train_counts, det_counts, model = {}, {}, {}, {}, None
     if "kernels" in phases:
         records = phase_kernels(cfg, batch)
     if "train" in phases:
@@ -794,38 +1158,46 @@ def main() -> int:
     if "serving" in phases:
         phase_serving(cfg, model, batch)
     del model
+    if "detection" in phases:
+        det_counts = phase_detection()
     if "reference" in phases:
         phase_reference()
+        phase_reference_detection()
     if not full_run:
         return 0
 
     # name: (source, TPU kernel it replaces, path its launches are counted on)
+    forward = "one B=%d SIG3D forward" % BATCH
+    step = "one B=%d SIG3D training step, scene encoder unfrozen" % BATCH
+    det_forward = "one B=%d VoteNet forward, %d points a scene" % (BATCH, DET_POINTS)
     sources = {
         "fused_sparse_conv": ("situation3d_tpu_torch/csrc/fused_conv.cu",
-                              "situation3d_tpu/ops/pallas/fused_conv.py:192", counts),
+                              "situation3d_tpu/ops/pallas/fused_conv.py:192", counts, forward),
         "k3_map_lookup": ("situation3d_tpu_torch/csrc/map_lookup.cu",
-                          "situation3d_tpu/ops/pallas/map_lookup.py:80", counts),
+                          "situation3d_tpu/ops/pallas/map_lookup.py:80", counts, forward),
         "k3_map_lookup_bits": ("situation3d_tpu_torch/csrc/map_bits.cu",
-                               "situation3d_tpu/ops/pallas/map_bits.py:161", counts),
+                               "situation3d_tpu/ops/pallas/map_bits.py:161", counts, forward),
         "gather_rows": ("situation3d_tpu_torch/csrc/gather_rows.cu",
-                        "situation3d_tpu/ops/pallas/gather.py:39", train_counts),
+                        "situation3d_tpu/ops/pallas/gather.py:39", train_counts, step),
         "scatter_add_rows": ("situation3d_tpu_torch/csrc/gather_rows.cu",
-                             "situation3d_tpu/ops/pallas/gather.py:82", train_counts)}
+                             "situation3d_tpu/ops/pallas/gather.py:82", train_counts, step),
+        "fps": ("situation3d_tpu_torch/csrc/fps.cu",
+                "situation3d_tpu/ops/pallas/fps.py:61", det_counts["forward"], det_forward)}
     kernels = []
-    for name, (src, replaces, path_counts) in sources.items():
+    for name, (src, replaces, path_counts, path) in sources.items():
         r = records[name]
         if path_counts.get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the main path")
-        on_train = path_counts is train_counts
         k = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
              "launches": path_counts[name], "max_abs_err": r["max_abs_err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
              "library_note": r.get("library",
                                    "no single PyTorch call computes this function"),
-             "path": ("one B=%d training step, scene encoder unfrozen" if on_train
-                      else "one B=%d forward") % BATCH,
-             "per": "sum over this kernel's launches on that path"}
+             "path": path, "per": "sum over this kernel's launches on that path"}
+        if name in ("gather_rows", "scatter_add_rows"):
+            k["launches_votenet_forward"] = det_counts["forward"][name]
+            k["launches_votenet_forward_backward"] = det_counts["forward_backward"][name]
         if name == "fused_sparse_conv":
             k["launches_train_step_unfrozen"] = train_counts[name]
             k["backward_dx_ms"] = records["conv_backward"]["dx_ms"]

@@ -2,16 +2,16 @@
 
 ``load_jax_variables(model, params, batch_stats)`` takes the reference
 model's ``params`` and ``batch_stats`` trees as nested dicts of NUMPY arrays
-(this module imports no JAX) and fills the port's ``SIG3D``. The port's
-module paths equal the reference's tree paths, so the mapping is by module
-type:
+(this module imports no JAX) and fills a port model (``SIG3D``, ``VoteNet``
+or any of their parts). The port's module paths equal the reference's tree
+paths, so the mapping is by module type:
 
-  Dense          kernel [in, out] -> weight [out, in]; bias
+  Dense          kernel [in, out] -> weight [out, in]; bias (where it has one)
   Embed          embedding -> weight
   LayerNorm      scale -> weight; bias
   MCANLayerNorm  scale; bias
   SparseConv / SparseConv1x1   kernel, layout kept
-  SparseBatchNorm  params scale, bias; batch_stats mean, var
+  SparseBatchNorm, BatchNorm  params scale, bias; batch_stats mean, var
 """
 from __future__ import annotations
 
@@ -20,11 +20,15 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from situation3d_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from situation3d_tpu_torch.models.layers import (BatchNorm, Dense, Embed,
+                                                  LayerNorm)
 from situation3d_tpu_torch.models.mcan import MCANLayerNorm
 from situation3d_tpu_torch.sparse.conv import (SparseBatchNorm, SparseConv,
                                                SparseConv1x1)
 
+_NORM_RULES = [("scale", "params", "scale", False), ("bias", "params", "bias", False),
+               ("mean", "batch_stats", "mean", False),
+               ("var", "batch_stats", "var", False)]
 # module type -> [(port tensor name, reference collection, reference leaf, transpose)]
 _RULES = {
     Dense: [("weight", "params", "kernel", True), ("bias", "params", "bias", False)],
@@ -33,9 +37,8 @@ _RULES = {
     MCANLayerNorm: [("scale", "params", "scale", False), ("bias", "params", "bias", False)],
     SparseConv: [("kernel", "params", "kernel", False)],
     SparseConv1x1: [("kernel", "params", "kernel", False)],
-    SparseBatchNorm: [("scale", "params", "scale", False), ("bias", "params", "bias", False),
-                      ("mean", "batch_stats", "mean", False),
-                      ("var", "batch_stats", "var", False)],
+    SparseBatchNorm: _NORM_RULES,
+    BatchNorm: _NORM_RULES,
 }
 
 
@@ -67,6 +70,8 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping[str, Any],
             continue
         path = tuple(mod_name.split(".")) if mod_name else ()
         for tensor_name, coll, leaf, transpose in rules:
+            if getattr(mod, tensor_name) is None:     # a Dense built without a bias
+                continue
             node: Any = trees[coll]
             for key in path + (leaf,):
                 if not isinstance(node, Mapping) or key not in node:

@@ -1,11 +1,19 @@
-"""The pinned synthetic scene batch used to exercise and time the SIG3D
-forward and training step: random points in an 8 x 6 x 3 m box voxelized at
-the configured voxel size, random colors, fixed-length random token ids, one
-random answer per sample. Made with numpy from the caller's ``RandomState``
-(the forward's fields are the same draws, in the same order, as the reference
-benchmark's batch; the training targets are drawn after them) and moved to
-``device``."""
+"""Synthetic batches for smoke runs and tests, made with numpy from the
+caller's ``RandomState`` and moved to ``device``.
+
+``make_detection_batch``: a room of points on a floor, four walls and the
+faces of a few axis-aligned boxes, with the labels the detection loss and the
+box parser read (VoteNet path). It is smoke and test data, not a dataset.
+
+``make_scene_batch``: the pinned scene batch used to exercise and time the
+SIG3D forward and training step: random points in an 8 x 6 x 3 m box
+voxelized at the configured voxel size, random colors, fixed-length random
+token ids, one random answer per sample (the forward's fields are the same
+draws, in the same order, as the reference benchmark's batch; the training
+targets are drawn after them)."""
 from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,3 +67,86 @@ def synthetic_batches(cfg, B: int, steps: int, seed: int = 0, device="cuda"):
             for i in range(max(1, min(2, steps)))]
     for i in range(steps):
         yield pool[i % len(pool)]
+
+
+def make_detection_arrays(B: int, N: int, rng: np.random.RandomState,
+                          mean_size_arr: Optional[np.ndarray] = None,
+                          room: Sequence[float] = (8.0, 6.0, 3.0),
+                          max_boxes: int = 64, num_boxes: Sequence[int] = (4, 10)
+                          ) -> Dict[str, np.ndarray]:
+    """One detection batch as numpy arrays.
+
+    Per scene ``N`` points in a ``room`` (metres, one corner at the origin):
+    35% on the floor, 30% on the walls, the rest on the top and side faces of
+    ``num_boxes[0]..num_boxes[1]`` axis-aligned boxes standing on the floor,
+    in shuffled order. Labels, padded to ``max_boxes``: ``center_label``,
+    ``box_label_mask``, heading class / residual (all zero: axis-aligned),
+    ``size_class_label`` (= the semantic class) and ``size_residual_label``
+    (size minus ``mean_size_arr[class]``; ones by default, as
+    ``ScannetDatasetConfig``'s), ``sem_cls_label``; per point ``vote_label``
+    (offset to its box's centre, three times; zero off a box) and
+    ``vote_label_mask``."""
+    rx, ry, rz = (float(v) for v in room)
+    if mean_size_arr is None:
+        mean_size_arr = np.ones((18, 3), np.float32)
+    out = {
+        "point_clouds": np.zeros((B, N, 3), np.float32),
+        "vote_label": np.zeros((B, N, 9), np.float32),
+        "vote_label_mask": np.zeros((B, N), np.int32),
+        "center_label": np.zeros((B, max_boxes, 3), np.float32),
+        "box_label_mask": np.zeros((B, max_boxes), np.float32),
+        "heading_class_label": np.zeros((B, max_boxes), np.int32),
+        "heading_residual_label": np.zeros((B, max_boxes), np.float32),
+        "size_class_label": np.zeros((B, max_boxes), np.int32),
+        "size_residual_label": np.zeros((B, max_boxes, 3), np.float32),
+        "sem_cls_label": np.zeros((B, max_boxes), np.int32),
+    }
+    n_floor, n_wall = int(0.35 * N), int(0.30 * N)
+    n_obj = N - n_floor - n_wall
+    for b in range(B):
+        k = min(int(rng.randint(num_boxes[0], num_boxes[1] + 1)), max_boxes)
+        size = np.stack([rng.uniform(0.10, 0.25, k) * min(rx, ry),
+                         rng.uniform(0.10, 0.25, k) * min(rx, ry),
+                         rng.uniform(0.15, 0.50, k) * rz], 1)
+        center = np.stack([size[:, 0] / 2 + rng.rand(k) * (rx - size[:, 0]),
+                           size[:, 1] / 2 + rng.rand(k) * (ry - size[:, 1]),
+                           size[:, 2] / 2], 1)
+        cls = rng.randint(0, len(mean_size_arr), k)
+
+        floor = np.stack([rng.rand(n_floor) * rx, rng.rand(n_floor) * ry,
+                          np.zeros(n_floor)], 1)
+        along, wall = rng.rand(n_wall), rng.randint(0, 4, n_wall)
+        wx = np.where(wall < 2, along * rx, (wall == 3) * rx)
+        wy = np.where(wall < 2, (wall == 1) * ry, along * ry)
+        walls = np.stack([wx, wy, rng.rand(n_wall) * rz], 1)
+        # a point on a box: two free coordinates in [-1/2, 1/2], the third
+        # pinned to a face (0/1: x faces, 2/3: y faces, 4: the top)
+        owner, face = rng.randint(0, k, n_obj), rng.randint(0, 5, n_obj)
+        u = rng.rand(n_obj, 3) - 0.5
+        axis, side = np.minimum(face // 2, 2), np.where(face % 2 == 0, 0.5, -0.5)
+        side = np.where(face == 4, 0.5, side)
+        u[np.arange(n_obj), axis] = side
+        on_box = center[owner] + u * size[owner]
+
+        pts = np.concatenate([floor, walls, on_box]).astype(np.float32)
+        votes = np.zeros((N, 3), np.float32)
+        votes[n_floor + n_wall:] = center[owner] - on_box
+        order = rng.permutation(N)
+        out["point_clouds"][b] = pts[order]
+        out["vote_label"][b] = np.tile(votes[order], (1, 3))
+        out["vote_label_mask"][b] = (order >= n_floor + n_wall).astype(np.int32)
+        out["center_label"][b, :k] = center
+        out["box_label_mask"][b, :k] = 1.0
+        out["size_class_label"][b, :k] = cls
+        out["size_residual_label"][b, :k] = size - mean_size_arr[cls]
+        out["sem_cls_label"][b, :k] = cls
+    return out
+
+
+def make_detection_batch(B: int, N: int, rng: np.random.RandomState, device="cuda",
+                         **kwargs) -> Dict[str, torch.Tensor]:
+    """:func:`make_detection_arrays` as tensors on ``device``: the cloud under
+    ``point_clouds`` [B, N, 3] and the detection labels."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v).to(dev)
+            for k, v in make_detection_arrays(B, N, rng, **kwargs).items()}

@@ -15,7 +15,6 @@ encoder's parameters requires a gradient the scene tower runs under
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -25,7 +24,8 @@ from torch import nn
 from situation3d_tpu_torch.config import Config
 from situation3d_tpu_torch.device import resolve_device
 from situation3d_tpu_torch.models.lang import LangModule
-from situation3d_tpu_torch.models.layers import Dense, dropout
+from situation3d_tpu_torch.models.layers import (Dense, dropout,  # noqa: F401
+                                                  init_random_weights)
 from situation3d_tpu_torch.models.mcan import SA, SGA, AttFlat
 from situation3d_tpu_torch.ops.cuda.gather_rows import (GatherRows,
                                                         ScatterAddRows,
@@ -321,29 +321,3 @@ class SIG3D(nn.Module):
         out["answer_scores"] = head(fuse, "answer_cls", mc.answer_pdrop).float()
         return out
 
-
-def init_random_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
-    """Fill a model with random weights from ``torch.Generator(seed)``, in
-    ``named_parameters`` order: conv kernels with the fan-in rule, other
-    matrices ``N(0, std)``, scales 1, biases 0; batch-norm running variance
-    in [0.5, 1.5] and mean ``N(0, 0.1)``. For smoke runs and benchmarks."""
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "kernel":
-                fan_in = p.shape[0] if p.dim() == 2 else p.shape[0] * p.shape[1]
-                v = torch.randn(p.shape, generator=g) * math.sqrt(2.0 / fan_in)
-            elif p.dim() >= 2:
-                v = torch.randn(p.shape, generator=g) * std
-            elif leaf in ("scale",) or (leaf == "weight" and p.dim() == 1):
-                v = torch.ones(p.shape)
-            else:
-                v = torch.zeros(p.shape)
-            p.copy_(v)
-        for name, buf in model.named_buffers():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "var":
-                buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
-            elif leaf == "mean":
-                buf.copy_(0.1 * torch.randn(buf.shape, generator=g))

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "s3d_fused_sparse_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "s3d_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "s3d_scatter_add_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "s3d_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,14 +1,20 @@
-"""Where the full-width SIG3D forward, or training step, spends its time on
-the card.
+"""Where the full-width SIG3D forward, or training step, or the full-width
+VoteNet detection path, spends its time on the card.
 
 Run from the repository root on a machine with one CUDA device:
 
     python3 -m situation3d_tpu_torch.tools.profile_forward [--batch 8] [--out DIR]
     python3 -m situation3d_tpu_torch.tools.profile_forward --train frozen|unfrozen
+    python3 -m situation3d_tpu_torch.tools.profile_forward --model votenet [--points 40000]
 
 With ``--train`` it times one training step of that configuration (scene
 encoder frozen, the default, or trained too) split into forward, backward
-and optimizer, and profiles one whole step.
+and optimizer, and profiles one whole step. With ``--model votenet`` it times
+the evaluation-form forward of the detector (float32) and its stages — the
+five sampling launches, the radius queries, the gathers, the pointwise MLPs
+with their pooling, the 3-NN search, the loss — and the training form's
+forward + loss and backward, and profiles one forward and one forward +
+backward.
 
 Prints one JSON object: the card's name and power limit, host-clock stage
 times (each stage ends in ``torch.cuda.synchronize()``; median of a few
@@ -133,6 +139,135 @@ def profile_train(args, cfg, card) -> dict:
     return result
 
 
+def profile_votenet(args, card) -> dict:
+    """Stage times of the detection path. Each stage function of
+    ``models/pointnet2_modules.py`` is wrapped so that it starts and ends in
+    a ``synchronize``; a forward run that way gives the stages' shares (their
+    sum exceeds the unwrapped forward, which overlaps host and device)."""
+    from torch.profiler import ProfilerActivity, profile
+    from situation3d_tpu_torch.data.scannet_preprocess import ScannetDatasetConfig
+    from situation3d_tpu_torch.data.synthetic import make_detection_batch
+    from situation3d_tpu_torch.models import pointnet2_modules as pm
+    from situation3d_tpu_torch.models.votenet import VoteNet
+    from situation3d_tpu_torch.train.detection_losses import get_detection_loss
+    dcfg = ScannetDatasetConfig()
+    batch = make_detection_batch(args.batch, args.points, np.random.RandomState(20), "cuda")
+    model = VoteNet(dcfg.num_class, dcfg.num_heading_bin, dcfg.num_size_cluster,
+                    dcfg.mean_size_arr, device="cuda")
+    init_random_weights(model, 21, std=None)
+    xyz = batch["point_clouds"]
+
+    spent, calls = {}, {}
+
+    def staged(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            calls[name] = calls.get(name, 0) + 1
+            return out
+        return run
+
+    plain = {n: getattr(pm, n) for n in ("furthest_point_sample", "ball_query",
+                                         "gather_points", "group_points", "three_nn",
+                                         "three_interpolate")}
+    mlp_forward = pm.SharedMLP.forward
+    stage_of = {"furthest_point_sample": "fps", "ball_query": "ball_query",
+                "gather_points": "gathers", "group_points": "gathers",
+                "three_nn": "three_nn", "three_interpolate": "interpolate"}
+    with torch.inference_mode():
+        for _ in range(2):
+            model(xyz)
+        stages = {}
+        stages["forward_total"], _ = _timed(lambda: model(xyz), args.runs)
+        for n, fn in plain.items():
+            setattr(pm, n, staged(stage_of[n], fn))
+        pm.SharedMLP.forward = staged("shared_mlps", mlp_forward)
+        try:
+            runs = []
+            for _ in range(args.runs):
+                spent.clear()
+                calls.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(xyz)
+                torch.cuda.synchronize()
+                runs.append(dict(spent, forward_with_stage_syncs=(
+                    time.perf_counter() - t0) * 1e3))
+        finally:
+            for n, fn in plain.items():
+                setattr(pm, n, fn)
+            pm.SharedMLP.forward = mlp_forward
+        for k in runs[0]:
+            stages[k] = statistics.median(r[k] for r in runs)
+        stages["pooling_heads_and_rest"] = stages["forward_with_stage_syncs"] - sum(
+            v for k, v in stages.items() if k in set(stage_of.values()) | {"shared_mlps"})
+        stage_calls = dict(calls)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(xyz)
+            torch.cuda.synchronize()
+        peak_forward = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+
+    times = {"train_forward_and_loss": [], "train_backward": []}
+    for i in range(args.runs + 1):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(xyz, train=True)
+        loss, _ = get_detection_loss({**out, **batch}, dcfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i:                                  # the first run warms up
+            times["train_forward_and_loss"].append((t1 - t0) * 1e3)
+            times["train_backward"].append((t2 - t1) * 1e3)
+    for k, v in times.items():
+        stages[k] = statistics.median(v)
+    torch.cuda.reset_peak_memory_stats()
+    model.zero_grad(set_to_none=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        out = model(xyz, train=True)
+        get_detection_loss({**out, **batch}, dcfg)[0].backward()
+        torch.cuda.synchronize()
+    trows = _device_rows(tprof)
+    tbusy = sum(r[0] for r in trows)
+    step_ms = stages["train_forward_and_loss"] + stages["train_backward"]
+    result = {
+        "card": card, "mode": "votenet", "batch": args.batch, "points": args.points,
+        "dtype": "float32", "stages_ms": {k: round(v, 3) for k, v in stages.items()},
+        "stage_calls": stage_calls,
+        "scenes_per_s": round(args.batch / stages["forward_total"] * 1e3, 3),
+        "device_busy_ms": round(busy_ms, 3),
+        "device_idle_share": (round(max(0.0, 1 - busy_ms / stages["forward_total"]), 4)
+                              if busy_ms else "not measured"),
+        "peak_memory_gb_forward": round(peak_forward, 2),
+        "train_device_busy_ms": round(tbusy, 3),
+        "train_device_idle_share": (round(max(0.0, 1 - tbusy / step_ms), 4)
+                                    if tbusy else "not measured"),
+        "peak_memory_gb_forward_backward": round(
+            torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+        "top_device_kernels": [{"ms": round(ms, 3), "calls": n, "name": k}
+                               for ms, n, k in rows[:20]],
+        "train_top_device_kernels": [{"ms": round(ms, 3), "calls": n, "name": k}
+                                     for ms, n, k in trows[:20]],
+    }
+    if args.out:
+        import os
+        os.makedirs(args.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out, "votenet_forward_trace.json"))
+        with open(os.path.join(args.out, "profile_votenet.json"), "w") as fh:
+            json.dump(result, fh, indent=1)
+    print(json.dumps(result))
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
@@ -140,12 +275,18 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--train", choices=["frozen", "unfrozen"], default=None,
                     help="profile a training step instead of the forward")
+    ap.add_argument("--model", choices=["sig3d", "votenet"], default="sig3d")
+    ap.add_argument("--points", type=int, default=40000,
+                    help="points a scene (--model votenet)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
+    if args.model == "votenet":
+        profile_votenet(args, card)
+        return 0
     cfg = apply_overrides(Config(), ["data.num_answers=706"])
     if args.train:
         profile_train(args, cfg, card)

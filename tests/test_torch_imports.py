@@ -25,8 +25,15 @@ def test_port_imports_nothing_of_jax():
     """Import every port module in a fresh interpreter and look at
     ``sys.modules``: no jax, flax, optax, orbax, transformers, yaml, nor the
     JAX package."""
-    assert len(PORT_MODULES) >= 30, PORT_MODULES
+    assert len(PORT_MODULES) >= 38, PORT_MODULES
     assert {"situation3d_tpu_torch.cli.train", "situation3d_tpu_torch.ops.cuda.gather_rows",
+            "situation3d_tpu_torch.ops.cuda.fps", "situation3d_tpu_torch.ops.pointnet2",
+            "situation3d_tpu_torch.ops.nn_distance",
+            "situation3d_tpu_torch.models.pointnet2_modules",
+            "situation3d_tpu_torch.models.votenet",
+            "situation3d_tpu_torch.train.detection_losses",
+            "situation3d_tpu_torch.eval.detection",
+            "situation3d_tpu_torch.data.scannet_preprocess",
             *(f"situation3d_tpu_torch.train.{m}" for m in (
                 "checkpoint", "logging", "losses", "metrics", "optim", "trainer"))
             } <= set(PORT_MODULES)
@@ -37,13 +44,41 @@ def test_port_imports_nothing_of_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers', 'yaml', 'triton', "
         "'wandb', 'tensorboard', 'situation3d_tpu'))\n"
-        "print('BAD=' + ','.join(bad))\n")
+        "print('BAD=' + ','.join(bad))\n"
+        "from situation3d_tpu_torch.ops.cuda import _build\n"
+        "print('BUILT=%s,%s' % (_build._lib is not None, _build.build_seconds))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          cwd=str(__import__("pathlib").Path(__file__).parents[1]))
     assert out.returncode == 0, out.stderr[-2000:]
-    bad = out.stdout.strip().splitlines()[-1]
+    bad, built = out.stdout.strip().splitlines()[-2:]
     assert bad == "BAD=", bad
+    assert built == "BUILT=False,0.0", built        # importing builds nothing
+
+
+def test_every_cuda_source_has_a_signature_and_a_wrapper():
+    """One C entry point per kernel, each declared to ``ctypes`` with a
+    pointer-sized type for every pointer and the stream, and named by the
+    wrapper that launches it."""
+    import ctypes
+    import re
+    from situation3d_tpu_torch.ops.cuda import _build
+    exported = set()
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        exported |= set(re.findall(r'extern "C" int (s3d_\w+)\(', src.read_text()))
+    assert exported == set(_build._SIGNATURES)
+    assert "s3d_fps" in exported and (_build.CSRC / "fps.cu").exists()
+    assert _build._SIGNATURES["s3d_fps"] == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    wrappers = "".join(p.read_text() for p in
+                       (_build.CSRC.parent / "ops" / "cuda").glob("*.py"))
+    for name in exported:
+        assert f"lib.{name}(" in wrappers, name
+    # the C side's parameter list has as many entries as the declaration
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (s3d_\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            assert len(params.split(",")) == len(_build._SIGNATURES[name]), name
 
 
 @pytest.mark.parametrize("group", ["DataConfig", "SparseConfig", "ModelConfig",
@@ -101,6 +136,13 @@ ENTRY_POINTS = {
     "SceneCache": lambda kw: __import__(
         "situation3d_tpu_torch.eval.serving", fromlist=["x"]).SceneCache(
             ENTRY_POINTS["SIG3D"]({"device": "cpu"}), **kw),
+    "VoteNet": lambda kw: __import__(
+        "situation3d_tpu_torch.models.votenet", fromlist=["x"]).VoteNet(
+            18, 1, 18, np.ones((18, 3), np.float32), num_proposal=4,
+            backbone_npoints=(8, 4, 2, 2), **kw),
+    "make_detection_batch": lambda kw: __import__(
+        "situation3d_tpu_torch.data.synthetic", fromlist=["x"]).make_detection_batch(
+            1, 32, np.random.RandomState(0), **kw),
 }
 
 

@@ -107,7 +107,7 @@ def flax_paths(model):
     out = {}
     for mod_name, mod in model.named_modules():
         for tensor_name, coll, leaf, transpose in _RULES.get(type(mod), ()):
-            if coll == "params":
+            if coll == "params" and getattr(mod, tensor_name) is not None:
                 out[f"{mod_name}.{tensor_name}"] = (tuple(mod_name.split(".")) + (leaf,),
                                                     transpose)
     return out
@@ -145,15 +145,57 @@ def with_targets(rng, batch, num_answers):
             "sample_valid": np.ones(B, bool)}
 
 
-def random_variables(jmodel, batch, rng):
-    """Reference variables for ``jmodel`` without running its initializers:
-    shapes from ``jax.eval_shape``, values from numpy (fan-in scaled), then
+def random_variables_of(init_fn, rng):
+    """Reference variables without running the initializers: shapes from
+    ``jax.eval_shape(init_fn)`` (a function of no arguments that calls
+    ``model.init``), values from numpy (fan-in scaled), then
     ``randomize_variables``."""
-    shapes = jax.eval_shape(
-        lambda b: jmodel.init({"params": jax.random.PRNGKey(0),
-                               "sample": jax.random.PRNGKey(1)}, b, train=False), batch)
+    shapes = jax.eval_shape(init_fn)
     variables = jax.tree_util.tree_map(
         lambda s: jnp.asarray((rng.randn(*s.shape)
                                / np.sqrt(max(np.prod(s.shape[:-1]), 1))).astype(np.float32)),
         shapes)
     return randomize_variables(variables, rng)
+
+
+def random_variables(jmodel, batch, rng):
+    """:func:`random_variables_of` for the reference ``SIG3D`` on ``batch``."""
+    return random_variables_of(
+        lambda: jmodel.init({"params": jax.random.PRNGKey(0),
+                             "sample": jax.random.PRNGKey(1)}, batch, train=False), rng)
+
+
+def flax_apply(jmodel, variables, *args, train=False, **kwargs):
+    """One jitted ``apply`` under full float32 matmul precision. Returns
+    ``(outputs, updated batch_stats or None)``; in training form the batch
+    norms use batch statistics and ``batch_stats`` is mutable."""
+    def run(v, a):
+        if train:
+            return jmodel.apply(v, *a, train=True, mutable=["batch_stats"], **kwargs)
+        return jmodel.apply(v, *a, **kwargs), {}
+    with jax.default_matmul_precision("highest"):
+        out, upd = jax.jit(run)(variables, args)
+    return out, (to_numpy_tree(upd.get("batch_stats", {})) if train else None)
+
+
+def load_into_port(model, variables):
+    """Carry reference variables into a port module; every leaf must be used."""
+    from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
+    unused = load_jax_variables(model, to_numpy_tree(variables["params"]),
+                                to_numpy_tree(variables.get("batch_stats", {})))
+    assert unused == [], unused
+    return model
+
+
+def port_batch_stats(model):
+    """``{port buffer name: numpy}`` -> laid out as the reference's
+    ``batch_stats`` tree (``a.b.mean`` -> ``tree[a][b][mean]``)."""
+    out = {}
+    for name, buf in model.named_buffers():
+        if name.rsplit(".", 1)[-1] in ("mean", "var"):
+            node = out
+            *path, leaf = name.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t2n(buf)
+    return out
