@@ -27,14 +27,16 @@ table's size; for the conv the operations are 2*C_in*C_out per map entry
 that hits a voxel in THIS run's maps. The row gather and the scatter-add
 do no arithmetic to speak of: the gather reads each distinct table row that
 THIS run's indices select once (not the whole table), the scatter-add its
-whole source; indices read once, output written once. Farthest point
+whole source; indices read once, output written once. The segment plan reads
+the indices once and writes the permutation and the offsets once. Farthest point
 sampling reads the coordinates once and writes the indices once and does
 about 10 float32 operations a point a step (67 TFLOP/s peak); both bounds lie
 far below its time, because its npoint-1 steps depend on each other: it is
 bound by the latency of a step.
 
 Launch counts. ``launches`` of the conv and the two map kernels are read
-around one forward, those of ``gather_rows`` and ``scatter_add_rows`` around
+around one forward, those of ``gather_rows``, ``scatter_add_rows`` and
+``segment_plan`` around
 one training step with the scene encoder unfrozen (the path that runs the
 conv backward), those of ``fps`` around one VoteNet forward; the counters are
 set to 0 just before and read just after.
@@ -91,6 +93,7 @@ KERNEL_COUNTERS = {"fused_sparse_conv": (fused_conv, "launches"),
                    "k3_map_lookup_bits": (map_bits, "launches"),
                    "gather_rows": (gather_rows, "gather_launches"),
                    "scatter_add_rows": (gather_rows, "scatter_launches"),
+                   "segment_plan": (gather_rows, "plan_launches"),
                    "fps": (fps, "launches")}
 DET_POINTS = 40000    # points a scene on the detection path
 DET_NPOINTS = (2048, 1024, 512, 256)
@@ -278,55 +281,126 @@ def check_gather_scatter(cfg, L, B, records) -> None:
     one_gather("token_gather", mean, token_idx, 1)
     one_gather("segment_sum_backward", mean, inv.clamp(min=0), 1)
 
-    srec = {"ms": 0.0, "kernel_only_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+    srec = {"ms": 0.0, "sum_only_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "library_ms": 0.0, "max_abs_err": 0.0, "bound_by": "bytes",
             "library": "index_add_ (float atomics, not deterministic)",
             "bit_equal_across_runs": True, "shapes": []}
+    prec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+            "max_abs_err": 0, "bound_by": "bytes", "shapes": [],
+            "plain": "sort_segments: torch.sort(stable) + torch.searchsorted"}
 
-    def one_scatter(name, src, idx, V, count):
-        got = gather_rows.scatter_add_rows(src, idx, V)
-        again = gather_rows.scatter_add_rows(src, idx, V)
-        want = gather_rows.scatter_add_rows_plain(src, idx, V)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            fail(f"scatter_add_rows {name}: two runs are not bit-equal")
-        err = float((got - want).abs().max())
-        if got.dtype != torch.float32 or not err <= SUM_ATOL:
-            fail(f"scatter_add_rows {name}: max abs err {err} > {SUM_ATOL}")
-        Bs, R, Cs = src.shape
-        # the library call: dropped entries (index -1) go to a spare row
-        flat_idx = (torch.where((idx >= 0) & (idx < V), idx, V).to(torch.int64)
-                    + torch.arange(Bs, device=dev)[:, None] * (V + 1)).reshape(-1)
-        flat_src = src.float().reshape(Bs * R, Cs)
-        acc = torch.empty(Bs * (V + 1), Cs, device=dev)
-        plan = gather_rows.sort_segments(idx, V)
-        longest = int((plan[1][:, 1:] - plan[1][:, :-1]).max())
-        ms = time_cuda(lambda: gather_rows.scatter_add_rows(src, idx, V))
-        kms = time_cuda(lambda: gather_rows.scatter_add_rows(src, idx, V, plan))
-        pms = time_cuda(lambda: gather_rows.scatter_add_rows_plain(src, idx, V))
-        lms = time_cuda(lambda: acc.zero_().index_add_(0, flat_idx, flat_src))
-        bound = (src.numel() * src.element_size() + idx.numel() * 4
-                 + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
-        for k, v in (("ms", ms), ("kernel_only_ms", kms), ("plain_ms", pms),
-                     ("library_ms", lms), ("bound_ms", bound)):
+    def one_scatter(name, src, idx, V, count, plan_count):
+        m = measure_scatter(name, src, idx, V)
+        # ms: the whole call (its sum and, where it makes one, its plan), as
+        # index_add_ does the whole job; sum_only_ms: the sum kernel alone
+        for k, v in (("sum_only_ms", m["kernel_only_ms"]), ("plain_ms", m["plain_ms"]),
+                     ("library_ms", m["library_ms"]), ("bound_ms", m["bound_ms"])):
             srec[k] += v * count
-        srec["max_abs_err"] = max(srec["max_abs_err"], err)
-        srec["shapes"].append({
-            "name": name, "per_step": count, "src": list(src.shape), "V": V,
-            "longest_segment": longest,
-            "ms": round(ms, 4), "kernel_only_ms": round(kms, 4),
-            "plain_ms": round(pms, 4), "library_ms": round(lms, 4),
-            "bound_ms": round(bound, 5), "err": err})
+        srec["ms"] += m["kernel_only_ms"] * count + m["plan_ms"] * plan_count
+        srec["max_abs_err"] = max(srec["max_abs_err"], m["err"])
+        for k, v in (("ms", m["plan_ms"]), ("plain_ms", m["plan_plain_ms"]),
+                     ("bound_ms", m["plan_bound_ms"])):
+            prec[k] += v * plan_count
+        srec["shapes"].append({"per_step": count, "plans_per_step": plan_count, **m})
 
     feats = torch.randn(B, V4, C, generator=g, device=dev) * bott["mask"][..., None]
-    one_scatter("segment_sums", feats, inv, V4, 1)
-    one_scatter("segment_counts", bott["mask"].float()[..., None], inv, V4, 1)
+    one_scatter("segment_sums", feats, inv, V4, 1, 1)
+    one_scatter("segment_counts", bott["mask"].float()[..., None], inv, V4, 1, 0)
     one_scatter("token_gather_backward",
-                torch.randn(B, N, C, generator=g, device=dev), token_idx, V4, 1)
+                torch.randn(B, N, C, generator=g, device=dev), token_idx, V4, 1, 1)
     # the bf16 instance of the kernel (the gradient of a gather from a bf16
     # table); no step of the default model runs it, so it adds to no total
-    one_scatter("segment_sums_bf16", feats.bfloat16(), inv, V4, 0)
+    one_scatter("segment_sums_bf16", feats.bfloat16(), inv, V4, 0, 0)
+    prec["edge_cases"] = check_plan_edges()
     records["gather_rows"], records["scatter_add_rows"] = grec, srec
+    records["segment_plan"] = prec
+
+
+def measure_scatter(name, src, idx, V, relative: bool = False) -> dict:
+    """``segment_plan`` equal to ``sort_segments`` and ``scatter_add_rows``
+    within ``SUM_ATOL`` (times the largest sum if ``relative``) of its plain
+    version, two runs bit-equal; times of the plan, the sum alone, the whole call (plan + sum),
+    the plain versions and ``index_add_``, and both bounds."""
+    dev = src.device
+    plan = gather_rows.segment_plan(idx, V)
+    want_plan = gather_rows.sort_segments(idx, V)
+    got = gather_rows.scatter_add_rows(src, idx, V)
+    again = gather_rows.scatter_add_rows(src, idx, V)
+    want = gather_rows.scatter_add_rows_plain(src, idx, V)
+    torch.cuda.synchronize()
+    if not (torch.equal(plan[0], want_plan[0]) and torch.equal(plan[1], want_plan[1])):
+        fail(f"segment_plan {name}: kernel != sort_segments")
+    if not torch.equal(got, again):
+        fail(f"scatter_add_rows {name}: two runs are not bit-equal")
+    err, scale = float((got - want).abs().max()), max(1.0, float(want.abs().max()))
+    if got.dtype != torch.float32 or not err <= SUM_ATOL * (scale if relative else 1.0):
+        fail(f"scatter_add_rows {name}: max abs err {err} > {SUM_ATOL}"
+             + (f" x {scale}" if relative else ""))
+    Bs, R, Cs = src.shape
+    # the library call: dropped entries (index -1) go to a spare row
+    flat_idx = (torch.where((idx >= 0) & (idx < V), idx, V).to(torch.int64)
+                + torch.arange(Bs, device=dev)[:, None] * (V + 1)).reshape(-1)
+    flat_src = src.float().reshape(Bs * R, Cs)
+    acc = torch.empty(Bs * (V + 1), Cs, device=dev)
+    ms = time_cuda(lambda: gather_rows.scatter_add_rows(src, idx, V))
+    kms = time_cuda(lambda: gather_rows.scatter_add_rows(src, idx, V, plan))
+    plan_ms = time_cuda(lambda: gather_rows.segment_plan(idx, V))
+    plan_pms = time_cuda(lambda: gather_rows.sort_segments(idx, V))
+    pms = time_cuda(lambda: gather_rows.scatter_add_rows_plain(src, idx, V))
+    lms = time_cuda(lambda: acc.zero_().index_add_(0, flat_idx, flat_src))
+    bound = (src.numel() * src.element_size() + idx.numel() * 4
+             + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
+    plan_bound = (idx.numel() * 8 + plan[1].numel() * 4) / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "src": list(src.shape), "dtype": str(src.dtype).split(".")[-1],
+            "V": V, "longest_segment": int((plan[1][:, 1:] - plan[1][:, :-1]).max()),
+            "dropped": int(idx.numel() - plan[1][:, -1].sum()),
+            "ms": round(ms, 4), "kernel_only_ms": round(kms, 4), "plan_ms": round(plan_ms, 4),
+            "plain_ms": round(pms, 4), "plan_plain_ms": round(plan_pms, 4),
+            "library_ms": round(lms, 4), "bound_ms": round(bound, 5),
+            "plan_bound_ms": round(plan_bound, 5), "err": err, "largest_sum": scale,
+            "plan_exact": True}
+
+
+def check_plan_edges() -> list:
+    """``segment_plan`` equal to ``sort_segments`` (and the sum to its plain
+    version) where the plan's design is stretched: one destination holding
+    12,000 entries, every index dropped, a single entry, and destinations too
+    many for a block's shared memory (the counters, and with R = 1,000,000
+    the lists of long segments too, in the global scratch)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    long_row = torch.randint(0, 50, (2, 20000), generator=g, device=DEV, dtype=torch.int32)
+    long_row[:, ::5] = 7
+    long_row[1, :12000] = 3                          # 12,000 entries for row 3
+    cases = [("one_destination_12000_entries", long_row, 50),
+             ("every_index_dropped",
+              torch.randint(-9, 0, (3, 7000), generator=g, device=DEV, dtype=torch.int32), 40),
+             ("r_equals_1", torch.tensor([[5], [-1], [0]], dtype=torch.int32, device=DEV), 6)]
+    wide = torch.randint(0, 300000, (2, 20000), generator=g, device=DEV, dtype=torch.int32)
+    wide[0, 3::2] = 123457                           # ~10,000 entries for one row
+    wide[1, ::7] = -1
+    huge = torch.randint(-1000, 500000, (2, 1000000), generator=g, device=DEV,
+                         dtype=torch.int32)
+    huge[:, ::50] = torch.tensor([[7], [499999]], dtype=torch.int32, device=DEV)
+    huge[:, 1::97] = 250000                          # long segments in two blocks
+    cases += [("v_300000_global_counters", wide, 300000),
+              ("v_500000_r_1000000_global_lists", huge, 500000)]
+    done = []
+    for name, idx, V in cases:
+        perm, off = gather_rows.segment_plan(idx, V)
+        want = gather_rows.sort_segments(idx, V)
+        src = torch.randn(*idx.shape, 4, generator=g, device=DEV)
+        got = gather_rows.scatter_add_rows(src, idx, V, (perm, off))
+        ref = gather_rows.scatter_add_rows_plain(src, idx, V)
+        torch.cuda.synchronize()
+        if not (torch.equal(perm, want[0]) and torch.equal(off, want[1])):
+            fail(f"segment_plan edge case {name}: kernel != sort_segments")
+        scale = max(1.0, float(ref.abs().max()))
+        if not float((got - ref).abs().max()) <= SUM_ATOL * scale:
+            fail(f"scatter_add_rows edge case {name}: sum != plain version")
+        done.append({"name": name, "R": idx.shape[1], "V": V,
+                     "longest_segment": int((off[:, 1:] - off[:, :-1]).max()),
+                     "dropped": int(idx.numel() - off[:, -1].sum())})
+    return done
 
 
 def check_conv_backward(cfg, L, B, records) -> None:
@@ -335,7 +409,7 @@ def check_conv_backward(cfg, L, B, records) -> None:
     backward in bf16 and, alone, the ``dx`` launch of the forward kernel."""
     dev = torch.device(DEV)
     g = torch.Generator(device=DEV).manual_seed(SEED + 11)
-    rec = {"ms": 0.0, "plain_ms": 0.0, "dx_ms": 0.0, "max_rel_err_f32": 0.0,
+    rec = {"ms": 0.0, "plain_ms": 0.0, "dx_ms": 0.0, "dx_bound_ms": 0.0, "max_rel_err_f32": 0.0,
            "max_rel_err_bf16": 0.0, "shapes": []}
     classes = [c + (True,) for c in _conv_classes(cfg)]
     # the scatter form (no transpose map): the UNet never takes it, so it is
@@ -383,18 +457,25 @@ def check_conv_backward(cfg, L, B, records) -> None:
         cot_f = cot.float()
         pms = time_cuda(lambda: torch.autograd.grad(ref, wrt, cot_f, retain_graph=True),
                         iters=3, warmup=1)
-        dx_ms = 0.0
+        dx_ms = dx_bound = 0.0
         if want_dx and with_map:
             wt = (w.detach().flip(0) if flip else w.detach()).transpose(1, 2)
             dx_ms = time_cuda(lambda: fused_conv.fused_sparse_conv(cot, t_map, wt))
+            # the forward's bound, on the transpose map: dy, map, W read, dx written
+            hits = int(((t_map >= 0) & (t_map < v_out)).sum())
+            dx_bound = max(2.0 * hits * c_in * c_out / BF16_FLOPS,
+                           (cot.numel() * 2 + t_map.numel() * 4 + wt.numel() * 2
+                            + B * v_in * c_in * 4) / HBM_BYTES_PER_S) * 1e3
         rec["ms"] += ms * count
         rec["plain_ms"] += pms * count
         rec["dx_ms"] += dx_ms * count
+        rec["dx_bound_ms"] += dx_bound * count
         rec["max_rel_err_f32"] = max(rec["max_rel_err_f32"], errs[torch.float32])
         rec["max_rel_err_bf16"] = max(rec["max_rel_err_bf16"], errs[torch.bfloat16])
         rec["shapes"].append({
             "name": name, "per_step": count, "dx": want_dx, "backward_ms": round(ms, 4),
             "plain_backward_ms": round(pms, 4), "dx_ms": round(dx_ms, 4),
+            "dx_bound_ms": round(dx_bound, 5),
             "err_f32": errs[torch.float32], "err_bf16": errs[torch.bfloat16]})
         del f32, w, cot32, f, cot, out, ref
     records["conv_backward"] = rec
@@ -444,6 +525,7 @@ def check_fps(records) -> None:
             fail(f"fps {name} {list(pts.shape)} -> {m}: kernel != plain version "
                  f"from sample {bad} on")
         Bp, Np, _ = pts.shape
+        layout = fps.fps_layout(Np)
         ms = time_cuda(lambda: fps.fps(pts, m))
         pms = time_cuda(lambda: fps.fps_plain(pts, m), iters=1, warmup=0)
         bytes_ms = (pts.numel() * 4 + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
@@ -456,6 +538,9 @@ def check_fps(records) -> None:
         rec["shapes"].append({
             "name": name, "xyz": list(pts.shape), "npoint": m, "ms": round(ms, 4),
             "us_per_step": round(ms * 1e3 / (m - 1), 3), "plain_ms": round(pms, 3),
+            "blocks_per_row": layout.blocks_per_row, "threads": layout.threads,
+            "points_per_thread": layout.points_per_thread,
+            "sms_used": Bp * layout.blocks_per_row,
             "bound_ms": round(max(bytes_ms, ops_ms), 5),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "exact": True})
     rec["bound_by"] = "operations" if rec["bound_ops_ms"] > rec["bound_bytes_ms"] else "bytes"
@@ -474,6 +559,10 @@ def check_fps(records) -> None:
     empty[1] = 0.0
     few = torch.zeros(2, 9001, 3, device=DEV)
     few[:, [7, 500, 8999]] = rand(2, 3, 3) + 1.0
+    # rows past the 65,536 points the registers hold: the rest in the scratch
+    lattice42 = torch.stack(torch.meshgrid(*[torch.arange(42.0, device=DEV)] * 3,
+                                           indexing="ij"), -1).reshape(1, -1, 3) + 1.0
+    long_rows = rand(2, 100000, 3) * 4 + 0.5
     edge = [
         ("valid_mask_long_row", xyz, 64, rand(BATCH, DET_POINTS) > 0.5),
         ("valid_mask_short_row", sets[1][1], 64, rand(BATCH, DET_NPOINTS[0]) > 0.5),
@@ -487,6 +576,8 @@ def check_fps(records) -> None:
         ("npoint_above_n", rand(2, 20, 3) + 0.5, 48, None),
         ("one_sample", rand(3, 100, 3) + 0.5, 1, None),
         ("non_contiguous", (rand(2, 3, 700) + 0.5).transpose(1, 2), 50, None),
+        ("integer_lattice_ties_above_65536_points", lattice42, 300, None),
+        ("valid_mask_above_65536_points", long_rows, 128, rand(2, 100000) > 0.3),
     ]
     for name, pts, m, valid in edge:
         got, want = fps.fps(pts, m, valid), fps.fps_plain(pts, m, valid)
@@ -494,6 +585,9 @@ def check_fps(records) -> None:
         if not torch.equal(got, want):
             fail(f"fps edge case {name}: kernel != plain version")
         rec["edge_cases"].append(name)
+    rec["rows_above_registers"] = {
+        "xyz": list(long_rows.shape), "npoint": 128,
+        "us_per_step": round(time_cuda(lambda: fps.fps(long_rows, 128)) * 1e3 / 127, 3)}
     if not bool((fps.fps(empty, 32)[1] == 0).all()):
         fail("fps: a row with nothing selectable must repeat index 0")
     for bad_call in (lambda: fps.fps(xyz.double(), 4), lambda: fps.fps(xyz[0], 4),
@@ -534,28 +628,18 @@ def check_detection_gathers(records) -> None:
         if not torch.equal(got, want):
             fail(f"gather_rows {name}: kernel != plain version")
         V = table.shape[1]
+        flat_table = table.reshape(-1, table.shape[2])
+        flat_idx = (idx.to(torch.int64)
+                    + torch.arange(BATCH, device=DEV)[:, None] * V).reshape(-1)
         src = torch.randn(got.shape, generator=g, device=DEV)
-        back = gather_rows.scatter_add_rows(src, idx, V)
-        again = gather_rows.scatter_add_rows(src, idx, V)
-        ref = gather_rows.scatter_add_rows_plain(src, idx, V)
-        torch.cuda.synchronize()
-        if not torch.equal(back, again):
-            fail(f"scatter_add_rows {name}: two runs are not bit-equal")
-        err, scale = float((back - ref).abs().max()), max(1.0, float(ref.abs().max()))
-        if not err <= SUM_ATOL * scale:
-            fail(f"scatter_add_rows {name}: max abs err {err} > {SUM_ATOL} x {scale}")
-        plan = gather_rows.sort_segments(idx, V)
         shapes.append({
             "name": name, "table": list(table.shape), "R": idx.shape[1],
             "gather_ms": round(time_cuda(lambda: gather_rows.gather_rows(table, idx)), 4),
             "gather_plain_ms": round(time_cuda(
                 lambda: gather_rows.gather_rows_plain(table, idx)), 4),
-            "scatter_add_ms": round(time_cuda(
-                lambda: gather_rows.scatter_add_rows(src, idx, V)), 4),
-            "scatter_add_plain_ms": round(time_cuda(
-                lambda: gather_rows.scatter_add_rows_plain(src, idx, V)), 4),
-            "longest_segment": int((plan[1][:, 1:] - plan[1][:, :-1]).max()),
-            "scatter_add_err": err, "largest_sum": scale})
+            "gather_library_ms": round(time_cuda(
+                lambda: flat_table.index_select(0, flat_idx)), 4),
+            "scatter_add": measure_scatter(name, src, idx, V, relative=True)})
     records["detection_gathers"] = {"shapes": shapes}
 
 
@@ -701,7 +785,7 @@ def phase_forward(cfg, batch):
         expected = {"fused_sparse_conv": 1 + 4 + 2 * sum(cfg.sparse.layers[:4]),
                     "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
                     "gather_rows": 1, "scatter_add_rows": 2,   # token pooling
-                    "fps": 0}
+                    "segment_plan": 1, "fps": 0}        # one plan, two sums
         if counts != expected:
             fail(f"kernel launches on one forward {counts} != expected {expected}")
         for _ in range(2):
@@ -724,13 +808,14 @@ def phase_forward(cfg, batch):
 
 def _expected_train_counts(cfg, unfrozen: bool) -> dict:
     """Kernel launches of one training step. Forward: 21 convs, 3 + 1 map
-    kernels, 1 token gather, 2 segment sums (features, counts). An unfrozen
-    encoder adds, backward: 20 convs as ``dx`` (conv0's input needs none), one
-    dy-gather per chunk of offsets per conv for ``dW``, the gather that is the
-    segment sum's backward and the scatter-add that is the token gather's."""
+    kernels, 1 token gather, 2 segment sums (features, counts) over 1 segment
+    plan. An unfrozen encoder adds, backward: 20 convs as ``dx`` (conv0's
+    input needs none), one dy-gather per chunk of offsets per conv for
+    ``dW``, the gather that is the segment sum's backward and the scatter-add
+    (with its own plan) that is the token gather's."""
     n_conv = 1 + 4 + 2 * sum(cfg.sparse.layers[:4])
     exp = {"fused_sparse_conv": n_conv, "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
-           "gather_rows": 1, "scatter_add_rows": 2, "fps": 0}
+           "gather_rows": 1, "scatter_add_rows": 2, "segment_plan": 1, "fps": 0}
     if unfrozen:
         B = BATCH
         chunks = 0
@@ -741,6 +826,7 @@ def _expected_train_counts(cfg, unfrozen: bool) -> dict:
         exp["fused_sparse_conv"] += n_conv - 1
         exp["gather_rows"] += chunks + 1
         exp["scatter_add_rows"] += 1
+        exp["segment_plan"] += 1          # the token gather's scatter-add plans anew
     return exp
 
 
@@ -958,12 +1044,13 @@ def _expected_detection_counts(backward: bool) -> dict:
     once for its interpolation (fp1, fp2). Backward: one scatter-add per
     gather whose table needs a gradient: the grouped features of sa2..sa4,
     the two interpolations, and all three gathers of the vote aggregation
-    (the votes are computed by the network; the cloud is not)."""
+    (the votes are computed by the network; the cloud is not), each with
+    its own segment plan."""
     exp = {name: 0 for name in KERNEL_COUNTERS}
     exp["fps"] = 5
     exp["gather_rows"] = 2 + 3 * 3 + 2 + 3
     if backward:
-        exp["scatter_add_rows"] = 3 + 2 + 3
+        exp["scatter_add_rows"] = exp["segment_plan"] = 3 + 2 + 3
     return exp
 
 
@@ -1181,6 +1268,8 @@ def main() -> int:
                         "situation3d_tpu/ops/pallas/gather.py:39", train_counts, step),
         "scatter_add_rows": ("situation3d_tpu_torch/csrc/gather_rows.cu",
                              "situation3d_tpu/ops/pallas/gather.py:82", train_counts, step),
+        "segment_plan": ("situation3d_tpu_torch/csrc/segment_plan.cu",
+                         "situation3d_tpu/ops/pallas/gather.py:82", train_counts, step),
         "fps": ("situation3d_tpu_torch/csrc/fps.cu",
                 "situation3d_tpu/ops/pallas/fps.py:61", det_counts["forward"], det_forward)}
     kernels = []
@@ -1195,12 +1284,15 @@ def main() -> int:
              "library_note": r.get("library",
                                    "no single PyTorch call computes this function"),
              "path": path, "per": "sum over this kernel's launches on that path"}
-        if name in ("gather_rows", "scatter_add_rows"):
+        if name in ("gather_rows", "scatter_add_rows", "segment_plan"):
             k["launches_votenet_forward"] = det_counts["forward"][name]
             k["launches_votenet_forward_backward"] = det_counts["forward_backward"][name]
+        if name == "scatter_add_rows":
+            k["sum_only_ms"] = r["sum_only_ms"]     # ms is the whole call: sums + plans
         if name == "fused_sparse_conv":
             k["launches_train_step_unfrozen"] = train_counts[name]
             k["backward_dx_ms"] = records["conv_backward"]["dx_ms"]
+            k["backward_dx_bound_ms"] = records["conv_backward"]["dx_bound_ms"]
             k["backward_dx_launches"] = train_counts[name] - counts[name]
         kernels.append(k)
     print(info["card"], flush=True)

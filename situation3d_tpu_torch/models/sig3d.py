@@ -30,7 +30,7 @@ from situation3d_tpu_torch.models.mcan import SA, SGA, AttFlat
 from situation3d_tpu_torch.ops.cuda.gather_rows import (GatherRows,
                                                         ScatterAddRows,
                                                         scatter_add_rows,
-                                                        sort_segments)
+                                                        segment_plan)
 from situation3d_tpu_torch.ops.voxelize import voxelize_torch
 from situation3d_tpu_torch.sparse.minkunet import MinkUNet, build_unet_plan
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
@@ -84,7 +84,7 @@ def situated_token_pool(coords: torch.Tensor, feats: torch.Tensor,
     # padding voxels carry weight 0: drop them (index -1) instead of summing
     # their zeros into slot 0, which would make one long segment
     inv = torch.where(mask, inv, -1)
-    segments = sort_segments(inv, V)
+    segments = segment_plan(inv, V)
     sums = ScatterAddRows.apply(feats.float() * mf[..., None], inv, V, segments)
     counts = scatter_add_rows(mf[..., None], inv, V, segments)
     mean = sums / counts.clamp(min=1.0)

@@ -38,8 +38,11 @@ _SIGNATURES = {
     "s3d_fused_sparse_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "s3d_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "s3d_scatter_add_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "s3d_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "s3d_segment_plan": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "s3d_segment_plan_scratch_ints": [_I, _I, _I],
+    "s3d_fps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+_RESTYPES = {"s3d_segment_plan_scratch_ints": ctypes.c_longlong}   # else c_int
 
 
 def _find_nvcc() -> str:
@@ -122,7 +125,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

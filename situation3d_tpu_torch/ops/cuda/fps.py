@@ -1,28 +1,89 @@
-"""Farthest point sampling: the CUDA kernel's wrapper and its plain version.
+"""Farthest point sampling: the CUDA kernel's wrapper, its layout and its
+plain version.
 
 Source note. Replaces the TPU kernel ``situation3d_tpu/ops/pallas/fps.py``
 (``_fps_kernel`` / ``fps_pallas``) and is, for CUDA tensors, the reference's
 ``ops/pointnet2.py:furthest_point_sample`` (its optional ``valid`` mask
 included): every sampling step of the PointNet++ / VoteNet path goes through
 it. The algorithm is a chain of ``npoint - 1`` dependent steps, so on an H100
-it is bound by the latency of a step (one pass over a row plus a block-wide
-argmax), not by bytes or operations; ``csrc/fps.cu`` keeps one row's state
-with one block for the whole launch (shared memory up to 8,192 points, L2
-beyond) and spends one barrier a step. Farthest point sampling has no
+it is bound by the latency of a step (one pass over the points an SM holds
+plus an argmax that every holder of the row agrees on), not by bytes or
+operations. ``csrc/fps.cu`` keeps each point's coordinates and running
+minimum in registers for the whole launch; :func:`fps_layout` spreads a row
+over one warp (N <= 512: no barrier), one block (N <= 8,192: one barrier a
+step) or a thread-block cluster of 8 blocks on 8 SMs (longer rows: a block
+barrier and a cluster barrier a step), the winner's coordinates travelling
+with it through distributed shared memory. Rows longer than the registers of
+a cluster hold (``MAX_POINTS``) keep the rest of their points' running minima
+in a global scratch, read from L2 each step. Farthest point sampling has no
 gradient.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from situation3d_tpu_torch.ops.cuda import _build
 
 launches = 0   # +1 per kernel launch, nowhere else
 
-SMEM_POINTS = 8192   # FPS_SMEM_POINTS of csrc/fps.cu: longer rows need the scratch
 _BIG = 1e10
+WARP_POINTS = 512       # rows up to this length: one warp a row
+BLOCK_POINTS = 8192     # rows up to this length: one block a row
+CLUSTER_BLOCKS = 8      # longer rows: a cluster of this many blocks (portable size)
+MAX_THREADS = 1024
+MAX_PPT = 8             # points a thread in the block and cluster modes (the aim:
+                        # a step costs by the warps that take part, not the points)
+WARP_PPTS = (1, 2, 4, 8, 16)
+MAX_POINTS = CLUSTER_BLOCKS * MAX_THREADS * MAX_PPT   # 65,536 points a row in registers
+
+
+class FpsLayout(NamedTuple):
+    blocks_per_row: int     # 1, or CLUSTER_BLOCKS for a cluster a row
+    threads: int            # a block; 32 = one warp a row
+    points_per_thread: int  # held in registers
+
+
+def _round32(n: int) -> int:
+    return (n + 31) // 32 * 32
+
+
+def fps_layout(n: int) -> FpsLayout:
+    """How ``csrc/fps.cu`` spreads a row of ``n`` points: one warp
+    (``n <= WARP_POINTS``), one block (``n <= BLOCK_POINTS``) or a cluster of
+    ``CLUSTER_BLOCKS`` blocks, ``MAX_PPT`` points a thread in both (the
+    fewest warps). Point ``c*T*P + k*T + t`` belongs to block ``c`` of the
+    row, thread ``t``, register slot ``k``; above ``MAX_POINTS`` the layout
+    is the largest cluster and the rest go to the scratch
+    (:func:`fps_point_index`)."""
+    if n < 1:
+        raise ValueError(f"fps: a row holds no point (N = {n})")
+    if n <= WARP_POINTS:
+        ppt = next(k for k in WARP_PPTS if 32 * k >= n)
+        return FpsLayout(1, 32, ppt)
+    bpr = 1 if n <= BLOCK_POINTS else CLUSTER_BLOCKS
+    per_block = -(-n // bpr)
+    ppt = MAX_PPT
+    threads = min(MAX_THREADS, _round32(-(-per_block // ppt)))
+    return FpsLayout(bpr, threads, ppt)
+
+
+def fps_point_index(n: int, layout: FpsLayout) -> np.ndarray:
+    """int64 [blocks_per_row, slots, threads]: the point each (block, slot,
+    thread) of ``layout`` holds, as ``csrc/fps.cu`` computes it, in the order
+    a thread scans its slots; entries ``>= n`` are empty slots. The first
+    ``points_per_thread`` slots are registers; a row longer than they hold
+    adds scratch slots, point ``reg + m*c*t + block*t + thread``."""
+    c, t, k = layout.blocks_per_row, layout.threads, layout.points_per_thread
+    reg = c * t * k
+    held = (np.arange(c)[:, None, None] * t * k + np.arange(k)[None, :, None] * t
+            + np.arange(t)[None, None, :])
+    m = -(-max(0, n - reg) // (c * t))
+    spilled = (reg + np.arange(m)[None, :, None] * c * t
+               + np.arange(c)[:, None, None] * t + np.arange(t)[None, None, :])
+    return np.concatenate([held, spilled], axis=1)
 
 
 def _check(xyz: torch.Tensor, npoint: int, valid: Optional[torch.Tensor]) -> None:
@@ -94,16 +155,17 @@ def fps(xyz: torch.Tensor, npoint: int,
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out
+    bpr, threads, ppt = fps_layout(N)
     global launches
     lib = _build.load_library()
     xyz = xyz.contiguous()
     mask = None if valid is None else valid.contiguous()
-    scratch = (torch.empty(B, N, dtype=torch.float32, device=xyz.device)
-               if N > SMEM_POINTS else None)
+    spill = (torch.empty(B, N - MAX_POINTS, dtype=torch.float32, device=xyz.device)
+             if N > MAX_POINTS else None)
     with torch.cuda.device(xyz.device):
         code = lib.s3d_fps(xyz.data_ptr(), None if mask is None else mask.data_ptr(),
-                           None if scratch is None else scratch.data_ptr(),
-                           out.data_ptr(), B, N, int(npoint),
+                           out.data_ptr(), None if spill is None else spill.data_ptr(),
+                           B, N, int(npoint), bpr, threads, ppt,
                            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "fps")
     launches += 1

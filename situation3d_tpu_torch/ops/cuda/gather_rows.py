@@ -1,22 +1,27 @@
-"""Row gather and its deterministic scatter-add: two CUDA kernels, their plain
-versions, and the two ``autograd.Function``s that make each the other's
-backward.
+"""Row gather and its deterministic scatter-add: three CUDA kernels (the
+gather, the scatter-add's segment plan, its sum), their plain versions, and
+the two ``autograd.Function``s that make gather and scatter-add each the
+other's backward.
 
 Source note. Replaces the TPU kernel ``situation3d_tpu/ops/pallas/gather.py``
 (``_gather_kernel`` / ``vmem_gather_rows``) and its backward ``_gather_bwd``
-(a plain XLA scatter-add in the reference, a kernel here). Both are bound by
-bytes on an H100. The gather (``csrc/gather_rows.cu``) moves 16-byte vectors,
-one a thread, rows in order, the index word read once per row; the
-scatter-add takes a stable sort of the indices from the wrapper
-(``torch.sort`` and ``torch.searchsorted`` are bookkeeping) and sums each
-destination row's segment in sorted order in one warp's f32 registers: no
-float atomics, so two runs are bit-equal. The TPU kernel's VMEM-resident
-table, f32-only rows, ``R % block_rows == 0`` and ``gather_fits_vmem`` have
-no counterpart here.
+(a plain XLA scatter-add in the reference, kernels here). All three are bound
+by bytes on an H100, and the scatter-add in practice by latency. The gather
+(``csrc/gather_rows.cu``) moves 16-byte vectors, one a thread, rows in order,
+the index word read once per row. The scatter-add adds no float atomics: its
+plan (``csrc/segment_plan.cu``, a cluster of 8 blocks a sample: integer-atomic
+counts, one scan, placement through cursors, each segment put in ascending
+source order by rank; no library sort) lists each destination's source rows
+in ascending order, and the sum (``csrc/gather_rows.cu``) walks them, one
+warp a destination row (one thread for rows of under 8 channels), with up
+to 8 rows' loads in flight, adding in that order, so two runs are bit-equal. The TPU kernel's
+VMEM-resident table, f32-only rows, ``R % block_rows == 0`` and
+``gather_fits_vmem`` have no counterpart here.
 
 In the port the two carry (a) the dy-gather of the sparse conv's gather-only
-backward (``sparse/conv.py``) and (b) the token gather and the segment sums
-of ``models/sig3d.py:situated_token_pool`` with their gradients.
+backward (``sparse/conv.py``), (b) the token gather and the segment sums of
+``models/sig3d.py:situated_token_pool`` with their gradients and (c) every
+gather of the PointNet++ / VoteNet path with its backward.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import torch
 from situation3d_tpu_torch.ops.cuda import _build
 
 gather_launches = 0    # +1 per gather kernel launch, nowhere else
-scatter_launches = 0   # +1 per scatter-add kernel launch, nowhere else
+scatter_launches = 0   # +1 per scatter-add (sum) kernel launch, nowhere else
+plan_launches = 0      # +1 per segment-plan kernel launch, nowhere else
 
 SegmentPlan = Tuple[torch.Tensor, torch.Tensor]
 
@@ -100,27 +106,66 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # scatter-add
 
 def sort_segments(idx: torch.Tensor, num_rows: int) -> SegmentPlan:
-    """Bookkeeping of the scatter-add: ``(perm int64 [B, R], offsets int32
-    [B, V+1])`` where ``perm`` is the stable argsort of each sample's indices
-    and ``offsets[b, v]`` the first sorted position whose index is ``>= v``.
-    Indices outside ``[0, V)`` fall outside every segment (they are dropped).
-    A plan can serve several sums over the same indices."""
-    sorted_idx, perm = torch.sort(idx, dim=1, stable=True)
-    bounds = torch.arange(num_rows + 1, dtype=idx.dtype, device=idx.device)
+    """Plain version of :func:`segment_plan`: ``(perm int32 [B, R], offsets
+    int32 [B, V+1])``. With ``key = idx`` where ``0 <= idx < V`` and ``V``
+    elsewhere, ``perm`` is the stable argsort of each sample's keys and
+    ``offsets[b, v]`` the first sorted position whose key is ``>= v``: the
+    source rows of destination ``v`` are ``perm[b, offsets[b, v]:offsets[b,
+    v+1]]`` in ascending order, and the dropped entries (indices outside
+    ``[0, V)``) form the tail of ``perm``, also in ascending order."""
+    key = torch.where((idx >= 0) & (idx < num_rows), idx, num_rows)
+    sorted_key, perm = torch.sort(key, dim=1, stable=True)
+    bounds = torch.arange(num_rows + 1, dtype=key.dtype, device=idx.device)
     offsets = torch.searchsorted(
-        sorted_idx, bounds.expand(idx.shape[0], num_rows + 1).contiguous(),
+        sorted_key, bounds.expand(idx.shape[0], num_rows + 1).contiguous(),
         out_int32=True)
+    return perm.to(torch.int32), offsets
+
+
+def segment_plan(idx: torch.Tensor, num_rows: int) -> SegmentPlan:
+    """The scatter-add's bookkeeping, equal to :func:`sort_segments` (which
+    says what it is). A plan can serve several sums over the same indices.
+
+    Args:
+      idx: int32 [B, R]; entries outside ``[0, num_rows)`` are dropped.
+      num_rows: V, the number of destination rows.
+    CPU tensors run the plain version; CUDA tensors launch the kernel (or
+    raise).
+    """
+    if idx.dim() != 2 or idx.dtype != torch.int32:
+        raise ValueError(f"segment_plan wants int32 idx [B, R], got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    if not idx.is_cuda:
+        return sort_segments(idx, num_rows)
+    global plan_launches
+    B, R = idx.shape
+    V = int(num_rows)
+    lib = _build.load_library()
+    idx = idx.contiguous()
+    perm = torch.empty(B, R, dtype=torch.int32, device=idx.device)
+    offsets = torch.empty(B, V + 1, dtype=torch.int32, device=idx.device)
+    scratch = torch.empty(B, R, dtype=torch.int32, device=idx.device)
+    n_scratch = lib.s3d_segment_plan_scratch_ints(B, R, V)   # 0: all in shared memory
+    counters = (torch.empty(n_scratch, dtype=torch.int32, device=idx.device)
+                if n_scratch else None)
+    with torch.cuda.device(idx.device):
+        code = lib.s3d_segment_plan(
+            idx.data_ptr(), perm.data_ptr(), offsets.data_ptr(), scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(), B, R, V,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "segment_plan")
+    plan_launches += 1
     return perm, offsets
 
 
 def scatter_add_rows_plain(src: torch.Tensor, idx: torch.Tensor, num_rows: int,
                            plan: Optional[SegmentPlan] = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`scatter_add_rows`: the same stable
-    sort, then one ``index_add_`` over the rows in sorted order, which on the
-    CPU adds one row after the other (deterministic, and the order the kernel
-    uses)."""
+    """Plain PyTorch version of :func:`scatter_add_rows`: the same plan,
+    then one ``index_add_`` over the rows in plan order, which on the CPU adds
+    one row after the other (deterministic, and the order the kernel uses)."""
     B, R, C = src.shape
     perm, _ = plan if plan is not None else sort_segments(idx, num_rows)
+    perm = perm.to(torch.int64)
     sorted_idx = torch.gather(idx, 1, perm).to(torch.int64)
     dest = torch.where((sorted_idx >= 0) & (sorted_idx < num_rows), sorted_idx,
                        num_rows)                       # spare row takes the drops
@@ -140,9 +185,9 @@ def scatter_add_rows(src: torch.Tensor, idx: torch.Tensor, num_rows: int,
       src: [B, R, C] float32 or bfloat16.
       idx: int32 [B, R]; entries outside ``[0, num_rows)`` are dropped.
       num_rows: V, the number of destination rows.
-      plan: ``sort_segments(idx, num_rows)`` if the caller already has it.
+      plan: ``segment_plan(idx, num_rows)`` if the caller already has it.
     Returns float32 [B, V, C]. CPU tensors run the plain version; CUDA tensors
-    launch the kernel (or raise).
+    launch the kernel (or raise), the plan kernel first when no plan is given.
     """
     _check(src, idx, "scatter_add_rows")
     B, R, C = src.shape
@@ -152,7 +197,9 @@ def scatter_add_rows(src: torch.Tensor, idx: torch.Tensor, num_rows: int,
         return scatter_add_rows_plain(src, idx, num_rows, plan)
     global scatter_launches
     lib = _build.load_library()
-    perm, offsets = plan if plan is not None else sort_segments(idx, num_rows)
+    perm, offsets = plan if plan is not None else segment_plan(idx, num_rows)
+    if perm.dtype != torch.int32 or offsets.dtype != torch.int32:
+        raise TypeError("scatter_add_rows: a plan is int32 (perm, offsets)")
     src, perm, offsets = _aligned(src), perm.contiguous(), offsets.contiguous()
     out = torch.empty(B, num_rows, C, dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):

@@ -1,9 +1,11 @@
-"""``gather_rows`` / ``scatter_add_rows`` plain versions and the two autograd
-Functions against the reference: ``vmem_gather_rows`` run in interpret mode
+"""``gather_rows`` / ``scatter_add_rows`` / ``segment_plan`` plain versions and
+the two autograd Functions against the reference: ``vmem_gather_rows`` run in interpret mode
 (as ``tests/test_pallas_kernels.py`` runs it) and its custom VJP. The gather
 is exact; sums are float32 in another order, atol 1e-6 on O(1) values. The
-CUDA kernels are held against these plain versions on the card by
-``chip_smoke.py``."""
+segment plan equals a numpy stable sort exactly, and a numpy mirror of its
+kernel's algorithm (cursor placement in any order, then order by rank) gives
+the same plan. The CUDA kernels are held against these plain versions on the
+card by ``chip_smoke.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,7 +82,7 @@ def test_scatter_add_drops_out_of_range_like_the_reference():
     got = tg.scatter_add_rows(torch.from_numpy(src), torch.from_numpy(idx), 12)
     np.testing.assert_allclose(t2n(got), np.asarray(want), atol=ATOL, rtol=0)
     perm, offsets = tg.sort_segments(torch.from_numpy(idx), 12)
-    assert perm.dtype == torch.int64 and offsets.dtype == torch.int32
+    assert perm.dtype == torch.int32 and offsets.dtype == torch.int32
     assert offsets.shape == (2, 13)
     seg = (offsets[:, 1:] - offsets[:, :-1]).numpy()
     np.testing.assert_array_equal(seg, np.stack([np.bincount(
@@ -140,3 +142,107 @@ def test_wrappers_check_their_arguments():
         tg.gather_rows(table, idx + 40)
     with pytest.raises(ValueError):
         tg.scatter_add_rows(table, idx, 4)                  # 40 rows, 16 indices
+
+
+def _plan_reference(idx, V):
+    """The plan by numpy alone: stable argsort of the key (the index where it
+    lies in ``[0, V)``, ``V`` elsewhere) and the first position of each key."""
+    key = np.where((idx >= 0) & (idx < V), idx, V)
+    perm = np.argsort(key, axis=1, kind="stable").astype(np.int32)
+    skey = np.take_along_axis(key, perm.astype(np.int64), 1)
+    offsets = np.stack([np.searchsorted(k, np.arange(V + 1), side="left") for k in skey])
+    return perm, offsets.astype(np.int32)
+
+
+def _plan_cases():
+    r = np.random.RandomState(8)
+    return {
+        "repeats": (r.randint(-3, 20, (3, 500)).astype(np.int32), 17),
+        "all_dropped": (r.randint(-5, 0, (2, 300)).astype(np.int32), 9),
+        "one_segment": (np.full((2, 400), 4, np.int32), 6),
+        "v_equals_1": (r.randint(-1, 2, (2, 64)).astype(np.int32), 1),
+        "r_equals_1": (np.array([[3], [-1], [0]], np.int32), 5),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_plan_cases()))
+def test_segment_plan_equals_sort_segments_and_a_numpy_sort(name):
+    idx, V = _plan_cases()[name]
+    perm, offsets = tg.segment_plan(torch.from_numpy(idx), V)      # CPU -> plain
+    assert tg.plan_launches == 0
+    assert perm.dtype == torch.int32 and offsets.dtype == torch.int32
+    want_perm, want_off = _plan_reference(idx, V)
+    np.testing.assert_array_equal(t2n(perm), want_perm)
+    np.testing.assert_array_equal(t2n(offsets), want_off)
+    p2, o2 = tg.sort_segments(torch.from_numpy(idx), V)
+    assert torch.equal(perm, p2) and torch.equal(offsets, o2)
+
+
+def _plan_by_rank(idx, V, blocks=8, warps=32, seed=0):
+    """What ``csrc/segment_plan.cu`` does, step by step in numpy: counters
+    split among ``blocks`` blocks, entries among ``blocks * warps`` warp
+    ranges; kept entries placed through cursors in an ARBITRARY order,
+    dropped ones compacted in warp-range order; then each segment put in
+    order by rank (its entries smaller than each entry)."""
+    rng = np.random.RandomState(seed)
+    B, R = idx.shape
+    vpb = max(1, -(-V // blocks))
+    per_warp = -(-(-(-R // (blocks * warps))) // 32) * 32
+    perms, offs = [], []
+    for row in idx:
+        kept = (row >= 0) & (row < V)
+        counts = np.bincount(row[kept], minlength=V)
+        start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        for c in range(blocks):                     # a block's range starts where
+            lo = min(V, c * vpb)                    # the earlier blocks' kept end
+            assert start[lo] == counts[:lo].sum()
+        cursor = start[:-1].copy()
+        tmp = np.full(R, -1, np.int64)
+        perm = np.full(R, -1, np.int64)
+        tail = int(kept.sum())
+        for w0 in range(0, R, per_warp):            # warp ranges, in order
+            for r in range(w0, min(R, w0 + per_warp)):
+                if not kept[r]:
+                    perm[tail] = r
+                    tail += 1
+        for r in rng.permutation(np.nonzero(kept)[0]):  # any placement order
+            tmp[cursor[row[r]]] = r
+            cursor[row[r]] += 1
+        for v in range(V):
+            seg = tmp[start[v]:start[v + 1]]
+            for x in seg:
+                perm[start[v] + int((seg < x).sum())] = x
+        perms.append(perm)
+        offs.append(start)
+    return np.stack(perms).astype(np.int32), np.stack(offs).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", sorted(_plan_cases()))
+def test_plan_by_cursor_and_rank_equals_sort_segments(name):
+    """The kernel's algorithm (arbitrary placement, then rank) gives the stable
+    order: shown in numpy on every plan case and two placement orders."""
+    idx, V = _plan_cases()[name]
+    want = tg.sort_segments(torch.from_numpy(idx), V)
+    for seed in (0, 1):
+        perm, offsets = _plan_by_rank(idx, V, seed=seed)
+        np.testing.assert_array_equal(perm, t2n(want[0]))
+        np.testing.assert_array_equal(offsets, t2n(want[1]))
+
+
+@pytest.mark.parametrize("dropped", [False, True])
+def test_scatter_add_plain_adds_in_ascending_r_bit_equal(dropped):
+    """``scatter_add_rows_plain`` (what the kernel is held to) adds each
+    destination's rows in ascending ``r``, dropped entries or not, in f32 and
+    from bf16 sources."""
+    r = np.random.RandomState(9)
+    src = (r.randn(2, 400, 3) * 10 ** r.uniform(-3, 3, (2, 400, 1))).astype(np.float32)
+    idx = r.randint(-4 if dropped else 0, 7, (2, 400)).astype(np.int32)
+    for t in (torch.from_numpy(src), torch.from_numpy(src).bfloat16()):
+        got = tg.scatter_add_rows_plain(t, torch.from_numpy(idx), 7)
+        rows = t.float().numpy()
+        want = np.zeros((2, 7, 3), np.float32)
+        for b in range(2):
+            for j in range(400):
+                if 0 <= idx[b, j] < 7:
+                    want[b, idx[b, j]] = want[b, idx[b, j]] + rows[b, j]
+        np.testing.assert_array_equal(t2n(got), want)

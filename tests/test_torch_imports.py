@@ -65,10 +65,13 @@ def test_every_cuda_source_has_a_signature_and_a_wrapper():
     from situation3d_tpu_torch.ops.cuda import _build
     exported = set()
     for src in sorted(_build.CSRC.glob("*.cu")):
-        exported |= set(re.findall(r'extern "C" int (s3d_\w+)\(', src.read_text()))
+        exported |= set(re.findall(r'extern "C" (?:int|long long) (s3d_\w+)\(',
+                                   src.read_text()))
     assert exported == set(_build._SIGNATURES)
     assert "s3d_fps" in exported and (_build.CSRC / "fps.cu").exists()
-    assert _build._SIGNATURES["s3d_fps"] == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    # xyz, valid, out, spill scratch; B, N, npoint and the layout (blocks a
+    # row, threads, points a thread); the stream
+    assert _build._SIGNATURES["s3d_fps"] == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     wrappers = "".join(p.read_text() for p in
                        (_build.CSRC.parent / "ops" / "cuda").glob("*.py"))
@@ -76,7 +79,7 @@ def test_every_cuda_source_has_a_signature_and_a_wrapper():
         assert f"lib.{name}(" in wrappers, name
     # the C side's parameter list has as many entries as the declaration
     for src in sorted(_build.CSRC.glob("*.cu")):
-        for name, params in re.findall(r'extern "C" int (s3d_\w+)\(([^)]*)\)',
+        for name, params in re.findall(r'extern "C" (?:int|long long) (s3d_\w+)\(([^)]*)\)',
                                        src.read_text()):
             assert len(params.split(",")) == len(_build._SIGNATURES[name]), name
 
