@@ -4,9 +4,11 @@ NVIDIA GPU: builds the CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version at the shapes the main paths give it,
 then drives the port's main paths — the full-width SIG3D scene-QA forward, a
 few optimizer steps of the trainer in both training configurations (scene
-encoder frozen, and trained too), the scene-cache serving form, and the
-full-width VoteNet detection path (forward, boxes and mAP, detection loss and
-its gradients) — and checks what comes out.
+encoder frozen, and trained too: the UNet's decoder then moves by weight
+decay alone), the scene-cache serving form, the whole MinkUNet with its
+decoder and 768-d head (``sparse.final_result``), and the full-width VoteNet
+detection path (forward, boxes and mAP, detection loss and its gradients) —
+and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA device, ``nvcc`` and no network. Exits non-zero when any phase
@@ -16,7 +18,13 @@ JSON line per phase, the card's name and power limit, one JSON object
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--only device,kernels`` runs a subset of the phases (a first check of a
-changed kernel); the contract lines are printed only by a full run.
+changed kernel); the contract lines are printed only by a full run. The
+``kernels`` phase holds ``fused_sparse_conv`` to its plain version at every
+conv class of the encoder (the SIG3D forward's total), of the decoder and of
+a surface-like scene (the floor and walls of a room voxelized into the
+level-0 capacity), each reported with its kernel instance, hit share, time
+(CUDA events around the call, and the kernel's device time from the
+profiler) and bound.
 
 Bounds. ``bound_ms`` of a kernel is the larger of (bytes it must move: each
 input read once, each output written once) / 3.35 TB/s and (operations on
@@ -35,7 +43,8 @@ far below its time, because its npoint-1 steps depend on each other: it is
 bound by the latency of a step.
 
 Launch counts. ``launches`` of the conv and the two map kernels are read
-around one forward, those of ``gather_rows``, ``scatter_add_rows`` and
+around one forward (41 conv launches around one whole-UNet forward in the
+``minkunet`` phase), those of ``gather_rows``, ``scatter_add_rows`` and
 ``segment_plan`` around
 one training step with the scene encoder unfrozen (the path that runs the
 conv backward), those of ``fps`` around one VoteNet forward; the counters are
@@ -54,7 +63,8 @@ import torch
 
 from situation3d_tpu_torch.config import Config, apply_overrides
 from situation3d_tpu_torch.data.scannet_preprocess import ScannetDatasetConfig
-from situation3d_tpu_torch.data.synthetic import (make_detection_batch,
+from situation3d_tpu_torch.data.synthetic import (make_detection_arrays,
+                                                  make_detection_batch,
                                                   make_scene_batch)
 from situation3d_tpu_torch.eval.detection import (APCalculator,
                                                   parse_groundtruths,
@@ -69,7 +79,9 @@ from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
 from situation3d_tpu_torch.ops.voxelize import voxelize_torch
 from situation3d_tpu_torch.sparse import conv as sparse_conv
 from situation3d_tpu_torch.sparse.kernel_map import build_level_grid
-from situation3d_tpu_torch.sparse.minkunet import STRIDES, build_unet_plan
+from situation3d_tpu_torch.sparse.minkunet import (DECODER, STRIDES, MinkUNet,
+                                                   build_unet_plan)
+from situation3d_tpu_torch.sparse.tensor import SparseVoxels
 from situation3d_tpu_torch.train.detection_losses import get_detection_loss
 from situation3d_tpu_torch.train.losses import get_loss
 from situation3d_tpu_torch.train.trainer import create_train_state, train_step
@@ -643,6 +655,117 @@ def check_detection_gathers(records) -> None:
     records["detection_gathers"] = {"shapes": shapes}
 
 
+def _decoder_classes(cfg):
+    """(name, input level, map key, map level, C_in, C_out, launches per full
+    UNet forward) for every conv class of the decoder (``final_result``):
+    the transposed convs gather the coarser level through the finer level's
+    ``map_up``; a layer's first conv takes the upsampled features and the
+    skip concatenated."""
+    sp = cfg.sparse
+    skip = {4: sp.planes[2], 3: sp.planes[1], 2: sp.planes[0], 1: sp.init_dim}
+    out, ch = [], sp.planes[3]
+    for j, lvl in zip(range(4, 8), (4, 3, 2, 1)):
+        p, n = sp.planes[j], 2 * sp.layers[j]
+        out.append((f"convtr{j}_level{lvl}to{lvl - 1}_k2_{ch}to{p}", lvl, "map_up", lvl - 1,
+                    ch, p, 1))
+        out.append((f"block{j + 1}_level{lvl - 1}_k3_{p + skip[lvl]}to{p}", lvl - 1, "map_k3",
+                    lvl - 1, p + skip[lvl], p, 1))
+        out.append((f"block{j + 1}_level{lvl - 1}_k3_{p}to{p}", lvl - 1, "map_k3", lvl - 1,
+                    p, p, n - 1))
+        ch = p
+    return out
+
+
+def device_ms(fn, name_part: str = "conv") -> float:
+    """Mean device time (ms) of the kernels whose name holds ``name_part``
+    in one call of ``fn``, from ``torch.profiler`` (L2 evicted before each
+    of 3 calls): the kernel alone, without the host's share of a call. A
+    profile that caught no such kernel is taken again (up to three times)."""
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    fn()
+    torch.cuda.synchronize()
+    iters = 3
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                _flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                 for e in prof.key_averages() if name_part in e.key)
+        if us > 0:
+            return us / iters / 1e3
+    fail(f"the profiler saw no kernel named *{name_part}*")
+
+
+def measure_conv(name, nbr, in_mask, c_in, c_out, g) -> dict:
+    """``fused_sparse_conv`` on the card against its plain version in bf16
+    and f32 (``CONV_ATOL``), its times (CUDA events around the call; the
+    kernel's device time from the profiler) and its bound on this map."""
+    dev = nbr.device
+    B, v_out, K = nbr.shape
+    v_in = in_mask.shape[1]
+    feats32 = torch.randn(B, v_in, c_in, generator=g, device=dev) * in_mask[..., None]
+    w = torch.randn(K, c_in, c_out, generator=g, device=dev) / (K * c_in) ** 0.5
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        f = feats32.to(dt)
+        got = fused_conv.fused_sparse_conv(f, nbr, w)
+        want = fused_conv.fused_sparse_conv_plain(f, nbr, w)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or got.shape != (B, v_out, c_out):
+            fail(f"fused_sparse_conv {name}: wrong output {got.dtype} {tuple(got.shape)}")
+        errs[dt] = float((got - want).abs().max())
+        if not errs[dt] <= CONV_ATOL:
+            fail(f"fused_sparse_conv {name} {dt}: max abs err {errs[dt]} > {CONV_ATOL}")
+    f = feats32.to(torch.bfloat16)
+    ms = time_cuda(lambda: fused_conv.fused_sparse_conv(f, nbr, w))
+    dms = device_ms(lambda: fused_conv.fused_sparse_conv(f, nbr, w))
+    pms = time_cuda(lambda: fused_conv.fused_sparse_conv_plain(f, nbr, w), iters=3, warmup=1)
+    hits = int(((nbr >= 0) & (nbr < v_in)).sum())
+    ops_ms = 2.0 * hits * c_in * c_out / BF16_FLOPS * 1e3
+    bytes_ms = (f.numel() * 2 + nbr.numel() * 4 + w.numel() * 2
+                + B * v_out * c_out * 4) / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "B": B, "V_in": v_in, "V_out": v_out, "K": K, "C_in": c_in,
+            "C_out": c_out, "instance": fused_conv.conv_instance(torch.bfloat16, K, c_in, c_out),
+            "map_hits": hits, "hit_share": round(hits / nbr.numel(), 4), "ms": ms,
+            "device_ms": dms, "plain_ms": pms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "err_f32": errs[torch.float32], "err_bf16": errs[torch.bfloat16]}
+
+
+SURFACE_VOXEL = 0.055   # metres: the room's floor and walls fill ~44,000 of 49,152 slots
+
+
+def surface_scene_convs(cfg, g) -> dict:
+    """conv0 and the level-1 k3 class on a surface-like scene: the floor and
+    walls of ``make_detection_arrays``' 8 x 6 x 3 m room (its box faces left
+    out), 400,000 points a scene, voxelized at 5.5 cm into the level-0
+    capacity, so every surface cell is a voxel, as in a scan. Reported
+    beside the main path's totals, not in them."""
+    arr = make_detection_arrays(BATCH, 400000, np.random.RandomState(SEED + 30))
+    pts = torch.as_tensor(arr["point_clouds"], device=DEV)
+    keep = torch.as_tensor(arr["vote_label_mask"] == 0, device=DEV)   # floor and walls
+    coords = torch.floor(pts / SURFACE_VOXEL).to(torch.int32).clamp(min=0)
+    caps = cfg.sparse.capacities
+    vc, vm, _, n_unique = voxelize_torch(coords, keep, capacity=caps[0])
+    plan = build_unet_plan(vc, vm, caps, tuple(cfg.sparse.grid_extent), device=DEV)
+    L = plan["levels"]
+    sp = cfg.sparse
+    out = {"voxel_m": SURFACE_VOXEL, "voxels_per_scene": [int(n) for n in n_unique],
+           "capacity": caps[0], "shapes": []}
+    if int(n_unique.max()) > caps[0]:
+        fail(f"surface scene overflows the level-0 capacity: {n_unique.tolist()}")
+    for name, lvl, key, c_in, c_out in (("conv0_k5", 0, "map_k5", sp.in_channels, sp.init_dim),
+                                        (f"level1_k3_{sp.planes[0]}to{sp.planes[0]}", 1,
+                                         "map_k3", sp.planes[0], sp.planes[0])):
+        out["shapes"].append(measure_conv(name, L[lvl][key], L[lvl]["mask"], c_in, c_out, g))
+    return out
+
+
 def phase_kernels(cfg, batch) -> dict:
     """Each kernel against its plain version on the card, at the main path's
     shapes, plus timings and bounds. Returns per-kernel records (without the
@@ -704,52 +827,31 @@ def phase_kernels(cfg, batch) -> dict:
     for name in ("k3_map_lookup", "k3_map_lookup_bits"):
         records[name]["bound_by"] = "bytes"
 
-    # ---- the fused conv, every class of the encoder ---------------------
+    # ---- the fused conv: every class of the encoder (the main path's
+    # total), of the decoder and of a surface-like scene (beside it) -------
     g = torch.Generator(device=DEV).manual_seed(SEED)
     rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_ops_ms": 0.0,
-           "bound_bytes_ms": 0.0, "max_abs_err": 0.0, "max_abs_err_f32": 0.0,
-           "shapes": []}
+           "bound_bytes_ms": 0.0, "device_ms": 0.0, "max_abs_err": 0.0,
+           "max_abs_err_f32": 0.0, "shapes": []}
     for name, lvl_in, key, lvl_map, c_in, c_out, count in _conv_classes(cfg):
-        nbr = L[lvl_map][key]
-        v_in, v_out, K = L[lvl_in]["coords"].shape[1], nbr.shape[1], nbr.shape[2]
-        feats32 = (torch.randn(B, v_in, c_in, generator=g, device=dev)
-                   * L[lvl_in]["mask"][..., None])
-        w = torch.randn(K, c_in, c_out, generator=g, device=dev) / (K * c_in) ** 0.5
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
-            f = feats32.to(dt)
-            got = fused_conv.fused_sparse_conv(f, nbr, w)
-            want = fused_conv.fused_sparse_conv_plain(f, nbr, w)
-            torch.cuda.synchronize()
-            if got.dtype != torch.float32 or got.shape != (B, v_out, c_out):
-                fail(f"fused_sparse_conv {name}: wrong output {got.dtype} {tuple(got.shape)}")
-            errs[dt] = float((got - want).abs().max())
-            if not errs[dt] <= CONV_ATOL:
-                fail(f"fused_sparse_conv {name} {dt}: max abs err {errs[dt]} > {CONV_ATOL}")
-        f = feats32.to(torch.bfloat16)
-        ms = time_cuda(lambda: fused_conv.fused_sparse_conv(f, nbr, w))
-        pms = time_cuda(lambda: fused_conv.fused_sparse_conv_plain(f, nbr, w), iters=3, warmup=1)
-        hits = int(((nbr >= 0) & (nbr < v_in)).sum())
-        ops_ms = 2.0 * hits * c_in * c_out / BF16_FLOPS * 1e3
-        bytes_ms = (f.numel() * 2 + nbr.numel() * 4 + w.numel() * 2
-                    + B * v_out * c_out * 4) / HBM_BYTES_PER_S * 1e3
-        rec["ms"] += ms * count
-        rec["plain_ms"] += pms * count
-        rec["bound_ops_ms"] += ops_ms * count
-        rec["bound_bytes_ms"] += bytes_ms * count
-        rec["bound_ms"] += max(ops_ms, bytes_ms) * count
-        rec["max_abs_err"] = max(rec["max_abs_err"], errs[torch.bfloat16])
-        rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], errs[torch.float32])
-        rec["shapes"].append({
-            "name": name, "per_forward": count, "B": B, "V_in": v_in, "V_out": v_out,
-            "K": K, "C_in": c_in, "C_out": c_out, "map_hits": hits,
-            "hit_share": round(hits / nbr.numel(), 4), "ms": round(ms, 4),
-            "plain_ms": round(pms, 4), "bound_ms": round(max(ops_ms, bytes_ms), 5),
-            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
-            "err_f32": errs[torch.float32], "err_bf16": errs[torch.bfloat16]})
-        del feats32, f, w
+        r = measure_conv(name, L[lvl_map][key], L[lvl_in]["mask"], c_in, c_out, g)
+        for k in ("ms", "plain_ms", "bound_ops_ms", "bound_bytes_ms", "bound_ms", "device_ms"):
+            rec[k] += r[k] * count
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["err_bf16"])
+        rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], r["err_f32"])
+        rec["shapes"].append({"per_forward": count, **r})
     rec["bound_by"] = ("operations" if rec["bound_ops_ms"] > rec["bound_bytes_ms"]
                        else "bytes")
+    dec = {"ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0, "shapes": []}
+    for name, lvl_in, key, lvl_map, c_in, c_out, count in _decoder_classes(cfg):
+        r = measure_conv(name, L[lvl_map][key], L[lvl_in]["mask"], c_in, c_out, g)
+        for k in ("ms", "bound_ms", "device_ms"):
+            dec[k] += r[k] * count
+        dec["shapes"].append({"per_forward": count, **r})
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["err_bf16"])
+        rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], r["err_f32"])
+    rec["decoder"] = dec
+    rec["surface_scene"] = surface_scene_convs(cfg, g)
     records["fused_sparse_conv"] = rec
     check_gather_scatter(cfg, L, B, records)
     check_conv_backward(cfg, L, B, records)
@@ -806,6 +908,87 @@ def phase_forward(cfg, batch):
     return model, counts
 
 
+def phase_minkunet(cfg, batch) -> dict:
+    """The full MinkUNet forward (``sparse.final_result=true``: encoder,
+    decoder and the 768-d head) at B=8 and the default capacities, bf16,
+    seeded random weights: plan + 41 conv launches, ``openscene_out``
+    ``[8, 49152, 768]`` finite, ms a forward, peak memory; then a small f32
+    instance on the card (kernels) against the CPU (plain versions)."""
+    ucfg = apply_overrides(cfg, ["sparse.final_result=true"])
+    sp = ucfg.sparse
+    net = MinkUNet(sp, torch.bfloat16).to(DEV).eval()
+    init_random_weights(net, SEED + 40)
+    B = batch["voxel_mask"].shape[0]
+
+    def forward():
+        x = SparseVoxels(batch["voxel_coords"], batch["voxel_feats"], batch["voxel_mask"], 1)
+        plan = build_unet_plan(x.coords, x.mask, sp.capacities, tuple(sp.grid_extent),
+                               device=DEV)
+        return net(x, plan)
+
+    with torch.inference_mode():
+        forward()
+        torch.cuda.synchronize()
+        reset_counts()                       # just before the path ...
+        out = forward()
+        torch.cuda.synchronize()
+        counts = read_counts()               # ... and just after
+        expected = {name: 0 for name in KERNEL_COUNTERS}
+        # encoder: conv0, 4 down convs, 2 convs a block; decoder: 4
+        # transposed convs, 2 convs a block (41 at the defaults)
+        n_conv = 1 + 4 + 2 * sum(sp.layers[:4]) + 4 + 2 * sum(sp.layers[4:8])
+        expected.update({"fused_sparse_conv": n_conv, "k3_map_lookup": 3,
+                         "k3_map_lookup_bits": 1})
+        if counts != expected:
+            fail(f"minkunet: kernel launches on one forward {counts} != expected {expected}")
+        o = out["openscene_out"].feats
+        if tuple(o.shape) != (B, sp.capacities[0], sp.out_channels) or \
+                not bool(torch.isfinite(o.float()).all()):
+            fail(f"minkunet: openscene_out {tuple(o.shape)} is wrong or not finite")
+        for k in ("feat_bottleneck", "feat_layer5", "feat_layer6"):
+            if not bool(torch.isfinite(out[k].feats.float()).all()):
+                fail(f"minkunet: {k} is not finite")
+        del out, o
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            forward()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del net
+
+    # small f32 instance: card against CPU, same weights and voxels
+    scfg = apply_overrides(small_cfg(), ["sparse.final_result=true", "sparse.out_channels=64"])
+    ss = scfg.sparse
+    sbatch, _, _ = make_scene_batch(scfg, 2, np.random.RandomState(SEED + 41), device="cpu")
+    cpu = MinkUNet(ss).eval()
+    init_random_weights(cpu, SEED + 42)
+    gpu = MinkUNet(ss).to(DEV).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    errs = {}
+    with torch.inference_mode():
+        res = {}
+        for name, m, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, DEV)):
+            x = SparseVoxels(*(sbatch[k].to(dev) for k in
+                               ("voxel_coords", "voxel_feats", "voxel_mask")), 1)
+            plan = build_unet_plan(x.coords, x.mask, ss.capacities, tuple(ss.grid_extent),
+                                   device=dev)
+            res[name] = {k: v.feats.float().cpu() for k, v in m(x, plan).items()}
+    for k, want in res["cpu"].items():
+        errs[k] = float((res["gpu"][k] - want).abs().max())
+        if not errs[k] <= SMALL_ATOL:
+            fail(f"minkunet small f32 {k}: card vs CPU max abs err {errs[k]} > {SMALL_ATOL}")
+    emit("minkunet", batch_size=B, dtype="bfloat16", final_result=True,
+         openscene_out_shape=[B, sp.capacities[0], sp.out_channels], finite=True,
+         launches_per_forward=counts, seconds_per_forward=round(dt, 5),
+         samples_per_s=round(B / dt, 3), peak_memory_gb=round(peak, 2),
+         small_f32_card_vs_cpu_max_abs_err=errs, small_atol=SMALL_ATOL)
+    return counts
+
+
 def _expected_train_counts(cfg, unfrozen: bool) -> dict:
     """Kernel launches of one training step. Forward: 21 convs, 3 + 1 map
     kernels, 1 token gather, 2 segment sums (features, counts) over 1 segment
@@ -841,13 +1024,56 @@ def _backward_once(cfg, state, batch) -> dict:
     loss, _ = get_loss(out, batch, cfg.loss, cfg.model.situation_loss_tag)
     state.optimizer.discard()
     loss.backward()
+    # the decoder's kernels are off the loss's path: no gradient
     grads = {n: p.grad.clone() for n, p in state.model.named_parameters()
-             if n.startswith("scene_encoder") and n.endswith("kernel")}
+             if n.startswith("scene_encoder") and n.endswith("kernel") and p.grad is not None}
     state.optimizer.discard()
     for g, st in zip(gens, saved):
         g.set_state(st)
     torch.cuda.synchronize()
     return grads
+
+
+def check_decoder_update(tcfg, model, state, before, trainable, mode) -> dict:
+    """The UNet's decoder is in SIG3D's parameters but not on its loss's
+    path. Unfrozen, its tensors are trainable: each kernel must have been
+    scaled by decoupled weight decay alone, by ``1 - lr_i * wd`` at each
+    update (rtol 1e-6), and its batch-norm scales and biases must be
+    bit-unchanged (zero gradient, no decay). Frozen, all of it stays put."""
+    names = [n for n, _ in model.named_parameters()
+             if n.startswith("scene_encoder.") and n.split(".")[1] in
+             {m for stage in DECODER[:2] for m in stage[:3]}]
+    if not names:
+        fail("train: the scene encoder has no decoder parameters")
+    params = dict(model.named_parameters())
+    wd = tcfg.train.weight_decay
+    lam = state.optimizer.scheduler.lr_lambdas[0]
+    steps = [1.0 - lam(i) * wd for i in range(state.optimizer.updates)]
+    kernels = [n for n in names if params[n].dim() >= 2]
+    norms = [n for n in names if params[n].dim() < 2]
+    if mode == "frozen":
+        if any(n in trainable for n in names) or \
+                any(not torch.equal(params[n], before[n]) for n in names):
+            fail("train frozen: a decoder parameter is trainable or moved")
+        return {"tensors": len(names), "bit_unchanged": True}
+    if any(n not in trainable for n in names):
+        fail("train unfrozen: a decoder parameter is not trainable")
+    worst = 0.0
+    for n in kernels:
+        want = before[n].clone()
+        for f in steps:            # the decay AdamW applies, step by step in f32
+            want.mul_(f)
+        err = float(((params[n].detach() - want).abs() / want.abs().clamp(min=1e-30)).max())
+        worst = max(worst, err)
+        if torch.equal(params[n], before[n]) or not err <= 1e-6:
+            fail(f"train unfrozen: decoder kernel {n} moved by more than weight decay "
+                 f"(rel err {err})")
+    changed = [n for n in norms if not torch.equal(params[n], before[n])]
+    if changed:
+        fail(f"train unfrozen: decoder batch-norm parameters changed: {changed[:4]}")
+    return {"tensors": len(names), "kernels_scaled_by_decay_alone": len(kernels),
+            "decay_factor": float(np.prod(steps)), "kernel_max_rel_err": worst,
+            "norm_parameters_bit_unchanged": len(norms)}
 
 
 def phase_train(cfg, batch) -> dict:
@@ -908,10 +1134,14 @@ def phase_train(cfg, batch) -> dict:
             fail(f"train {mode}: trainable matrices did not move: {still[:4]}")
         if state.step != warmup + timed or state.optimizer.updates != warmup + timed:
             fail(f"train {mode}: {state.step} steps, {state.optimizer.updates} updates")
+        decoder = check_decoder_update(tcfg, model, state, before, trainable, mode)
         report[mode] = {
             "steps": warmup + timed, "loss_first": losses[0], "loss_last": losses[-1],
             "trainable_tensors": len(trainable), "frozen_tensors": len(before) - len(trainable),
             "moved_tensors": len(moved), "frozen_bit_unchanged": True,
+            "trainable_parameters": sum(p.numel() for n, p in model.named_parameters()
+                                        if n in trainable),
+            "decoder": decoder,
             "launches_per_step": counts, "seconds_per_step": round(dt, 5),
             "samples_per_s": round(BATCH / dt, 3),
             "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)}
@@ -1220,7 +1450,7 @@ def phase_reference_detection() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
-                    "device,kernels,forward,train,serving,detection,reference")
+                    "device,kernels,forward,train,serving,minkunet,detection,reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1228,7 +1458,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     phases = [p for p in args.only.split(",") if p] or \
-        ["device", "kernels", "forward", "train", "serving", "detection", "reference"]
+        ["device", "kernels", "forward", "train", "serving", "minkunet", "detection",
+         "reference"]
     full_run = not args.only
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
 
@@ -1245,6 +1476,9 @@ def main() -> int:
     if "serving" in phases:
         phase_serving(cfg, model, batch)
     del model
+    unet_counts = {}
+    if "minkunet" in phases:
+        unet_counts = phase_minkunet(cfg, batch)
     if "detection" in phases:
         det_counts = phase_detection()
     if "reference" in phases:
@@ -1291,6 +1525,11 @@ def main() -> int:
             k["sum_only_ms"] = r["sum_only_ms"]     # ms is the whole call: sums + plans
         if name == "fused_sparse_conv":
             k["launches_train_step_unfrozen"] = train_counts[name]
+            k["launches_full_unet_forward"] = unet_counts[name]
+            k["device_ms"] = r["device_ms"]
+            k["shapes"] = [{kk: sh[kk] for kk in ("name", "per_forward", "instance", "hit_share",
+                                                 "ms", "device_ms", "bound_ms", "bound_by")}
+                           for sh in r["shapes"]]
             k["backward_dx_ms"] = records["conv_backward"]["dx_ms"]
             k["backward_dx_bound_ms"] = records["conv_backward"]["dx_bound_ms"]
             k["backward_dx_launches"] = train_counts[name] - counts[name]

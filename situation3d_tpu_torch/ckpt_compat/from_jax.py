@@ -10,7 +10,7 @@ paths, so the mapping is by module type:
   Embed          embedding -> weight
   LayerNorm      scale -> weight; bias
   MCANLayerNorm  scale; bias
-  SparseConv / SparseConv1x1   kernel, layout kept
+  SparseConv / SparseConv1x1   kernel, layout kept; bias (where it has one)
   SparseBatchNorm, BatchNorm  params scale, bias; batch_stats mean, var
 """
 from __future__ import annotations
@@ -36,7 +36,7 @@ _RULES = {
     LayerNorm: [("weight", "params", "scale", False), ("bias", "params", "bias", False)],
     MCANLayerNorm: [("scale", "params", "scale", False), ("bias", "params", "bias", False)],
     SparseConv: [("kernel", "params", "kernel", False)],
-    SparseConv1x1: [("kernel", "params", "kernel", False)],
+    SparseConv1x1: [("kernel", "params", "kernel", False), ("bias", "params", "bias", False)],
     SparseBatchNorm: _NORM_RULES,
     BatchNorm: _NORM_RULES,
 }
@@ -57,8 +57,8 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping[str, Any],
     Raises ``KeyError`` on a reference leaf the port needs and cannot find,
     ``ValueError`` on a shape mismatch, and ``RuntimeError`` if a port
     parameter or buffer stays unfilled. Returns the sorted list of reference
-    leaves it did not use (``"params/scene_encoder/block5/..."``: the
-    decoder the port does not have), so nothing is dropped silently.
+    leaves it did not use (none for the port's models), so nothing is
+    dropped silently.
     """
     trees = {"params": params, "batch_stats": batch_stats}
     used = set()
@@ -70,7 +70,7 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping[str, Any],
             continue
         path = tuple(mod_name.split(".")) if mod_name else ()
         for tensor_name, coll, leaf, transpose in rules:
-            if getattr(mod, tensor_name) is None:     # a Dense built without a bias
+            if getattr(mod, tensor_name) is None:     # a module built without a bias
                 continue
             node: Any = trees[coll]
             for key in path + (leaf,):

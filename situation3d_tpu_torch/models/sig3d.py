@@ -196,7 +196,7 @@ class SIG3D(nn.Module):
                                    device=self.device)
         frozen = not any(p.requires_grad for p in self.scene_encoder.parameters())
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            bott = self.scene_encoder(x, plan)["feat_bottleneck"]
+            bott = self.scene_encoder(x, plan, bottleneck_only=True)["feat_bottleneck"]
         N = cfg.model.num_scene_tokens
         if sample_draws is None:
             sample_draws = make_sample_draws(bott.batch_size, bott.capacity, N,

@@ -35,7 +35,7 @@ _SIGNATURES = {
     # name: argtypes (every pointer and the stream is a c_void_p)
     "s3d_k3_map_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "s3d_k3_map_lookup_bits": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "s3d_fused_sparse_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "s3d_fused_sparse_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "s3d_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "s3d_scatter_add_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "s3d_segment_plan": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

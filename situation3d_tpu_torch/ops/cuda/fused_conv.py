@@ -1,25 +1,32 @@
 """Fused sparse convolution (gather + miss mask + per-offset product, f32
-sum): CUDA kernel + plain version.
+sum): CUDA kernels + plain version.
 
 Source note. Replaces the TPU kernel ``situation3d_tpu/ops/pallas/
-fused_conv.py`` (``_fused_kernel`` / ``fused_sparse_conv``). The same kernel
-serves the backward: ``sparse/conv.py`` runs it on the transpose map with
+fused_conv.py`` (``_fused_kernel`` / ``fused_sparse_conv``). The same kernels
+serve the backward: ``sparse/conv.py`` runs them on the transpose map with
 transposed weights for ``dx``, so the weights are detached here and the
-``autograd.Function`` there owns the graph. On an H100 the k3 convs at wide
-channels are bound by operations and conv0 / the k2 convs by the map and
-output bytes (``chip_smoke.py`` works the bound out per shape). The design
-(``csrc/fused_conv.cu``) treats the sum over offsets and channels as one
-contraction of length ``K*C_in`` whose left operand is gathered: a block
-owns a tile of output voxels of one sample, loops over the contraction
-inside the block, stages gathered rows and weights in shared memory,
-accumulates in f32 registers, and skips chunks in which every entry is a
-miss. bfloat16 inputs with ``C_in % 32 == 0``, ``C_out % 8 == 0``, ``K <= 32`` (every
-k2 / k3 conv of the UNet) multiply on the tensor cores (``mma.sync`` through
-the wmma API, f32 accumulators); any other shape, conv0's ``C_in = 3`` and
-float32 included, takes the CUDA-core kernel. wgmma, TMA and cp.async
-pipelines are later work. The TPU kernel's
-packed 128-lane table rows, lane-select masks and (B, block, K) sequential
-grid have no counterpart here.
+``autograd.Function`` there owns the graph. The sum over offsets and
+channels is one contraction of length ``K*C_in`` whose left operand is
+gathered; each output element is summed by one thread in a fixed order, so
+results are bit-reproducible. ``conv_route`` picks one of three kernels of
+``csrc/fused_conv.cu`` (one launch a call):
+
+  wgmma   bf16, ``C_in % 32 == 0``, ``C_out % 8 == 0``, ``C_out <= 256``,
+          ``K <= 32``: every k2 / k3 / transposed conv of the UNet. A
+          gathered-A GEMM: 128 output voxels x all of ``C_out`` a block,
+          cp.async gathers into a swizzled 3-stage ring, W^T by TMA,
+          ``wgmma`` with f32 accumulators; offsets that hit no voxel of a
+          tile are skipped. Its bound on an H100: the f32 output bytes at
+          levels 0-2, the tensor cores at levels 3-4; what holds it back
+          is the rate at which the gathers issue.
+  stream  ``C_in <= 4``, ``C_out <= 32``, ``K <= 128`` (conv0, bf16 or f32):
+          bound by the map's bytes; map tiles stream into shared memory by
+          bulk copies, hits are compacted with ballots, one lane an output
+          channel on the CUDA cores.
+  fma     anything else (f32 at wide channels): f32 FMAs on the CUDA cores.
+
+The TPU kernel's packed 128-lane table rows, lane-select masks and (B,
+block, K) sequential grid have no counterpart here.
 """
 from __future__ import annotations
 
@@ -28,6 +35,37 @@ import torch
 from situation3d_tpu_torch.ops.cuda import _build
 
 launches = 0   # +1 per kernel launch, nowhere else
+
+ROUTES = {"fma": 0, "wgmma": 1, "stream": 2}   # csrc/fused_conv.cu's ROUTE_*
+WG_BM = 128        # output voxels a block of the wgmma kernel
+WG_MAXK = 32       # map columns its tile keeps in shared memory
+ST_MAXK = 128      # map columns the stream kernel takes
+
+
+def conv_route(dtype: torch.dtype, K: int, C_in: int, C_out: int) -> str:
+    """The kernel ``fused_sparse_conv`` launches for these shapes."""
+    if C_in <= 4 and C_out <= 32 and K <= ST_MAXK:
+        return "stream"
+    if (dtype == torch.bfloat16 and C_in % 32 == 0 and C_out % 8 == 0
+            and C_out <= 256 and K <= WG_MAXK):
+        return "wgmma"
+    return "fma"
+
+
+def wgmma_bk(C_in: int) -> int:
+    """Channels of one contraction step of the wgmma kernel: 64 (rows of
+    128 bytes, 128-byte swizzle) where ``C_in % 64 == 0``, else 32 (64-byte
+    rows and swizzle)."""
+    return 64 if C_in % 64 == 0 else 32
+
+
+def conv_instance(dtype: torch.dtype, K: int, C_in: int, C_out: int) -> str:
+    """The kernel instance a call runs, for reports: the route and, for
+    wgmma, its contraction step and padded column count."""
+    route = conv_route(dtype, K, C_in, C_out)
+    if route != "wgmma":
+        return route
+    return f"wgmma BK={wgmma_bk(C_in)} BN={-(-C_out // 32) * 32 if C_out <= 128 else 256}"
 
 
 def fused_sparse_conv_plain(feats: torch.Tensor, nbr_idx: torch.Tensor,
@@ -48,6 +86,12 @@ def fused_sparse_conv_plain(feats: torch.Tensor, nbr_idx: torch.Tensor,
     for k in range(K):
         out += table.index_select(0, idx[:, :, k].reshape(-1)) @ w[k]
     return out.view(B, V_out, -1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it that starts on a 16-byte boundary (cp.async
+    moves 16 bytes)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_sparse_conv(feats: torch.Tensor, nbr_idx: torch.Tensor,
@@ -80,14 +124,19 @@ def fused_sparse_conv(feats: torch.Tensor, nbr_idx: torch.Tensor,
     global launches
     lib = _build.load_library()
     C_out = kernel.shape[2]
-    feats, nbr_idx = feats.contiguous(), nbr_idx.contiguous()
-    w = kernel.detach().to(feats.dtype).contiguous()
+    route = conv_route(feats.dtype, K, C_in, C_out)
+    feats, nbr_idx = _aligned(feats.contiguous()), nbr_idx.contiguous()
+    w = kernel.detach()
+    if route == "wgmma":      # W^T [C_out, K*C_in]: the K-major operand TMA reads
+        w = w.permute(2, 0, 1)
+    # one copy casts (and for wgmma transposes) the weights
+    w = torch.empty(w.shape, dtype=feats.dtype, device=feats.device).copy_(w)
     out = torch.empty(B, V_out, C_out, dtype=torch.float32, device=feats.device)
     with torch.cuda.device(feats.device):
         code = lib.s3d_fused_sparse_conv(
             feats.data_ptr(), nbr_idx.data_ptr(), w.data_ptr(), out.data_ptr(),
             B, V_in, V_out, K, C_in, C_out, int(feats.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            ROUTES[route], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "fused_sparse_conv")
     launches += 1
     return out

@@ -202,17 +202,24 @@ class SparseConv(nn.Module):
 
 class SparseConv1x1(nn.Module):
     """kernel_size=1 sparse conv == per-voxel dense projection (BasicBlock
-    downsample path). A plain large product: left to ``torch.matmul``."""
+    downsample path; with ``use_bias``, the UNet's ``final`` head). A plain
+    large product: left to ``torch.matmul``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bias: bool = False):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_channels, out_channels))
         _fan_in_normal_(self.kernel, in_channels)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
     def forward(self, x: SparseVoxels) -> SparseVoxels:
-        out = torch.matmul(x.feats.to(self.dtype), self.kernel.to(self.dtype))
+        feats, w = x.feats.to(self.dtype), self.kernel.to(self.dtype)
+        if self.bias is None:
+            out = torch.matmul(feats, w)
+        else:   # as the reference: f32 product plus bias, then the cast
+            out = _matmul_f32(feats.reshape(-1, feats.shape[-1]), w)
+            out = (out.view(*feats.shape[:-1], -1) + self.bias).to(self.dtype)
         return x.replace(feats=out * x.mask[..., None])
 
 

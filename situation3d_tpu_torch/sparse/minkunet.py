@@ -1,19 +1,25 @@
-"""MinkUNet18A encoder on the sparse engine (port of
+"""MinkUNet18A on the sparse engine (port of
 ``situation3d_tpu/sparse/minkunet.py``: ``build_unet_plan`` dense path,
-``BasicBlock``, ``ResLayer`` and ``MinkUNet`` up to ``feat_bottleneck``).
+``BasicBlock``, ``ResLayer`` and ``MinkUNet``).
 
   conv0 (k5, s1) -> [conv k2/s2 -> 2x BasicBlock(k3)] x4 down to stride 16
-  (``feat_bottleneck``).
+  (``feat_bottleneck``) -> [transposed conv k2 on map_up -> cat(skip) ->
+  2x BasicBlock(k3)] x2 (``feat_layer5``, ``feat_layer6``) and, under
+  ``sparse.final_result``, x2 more and the 1x1 ``final`` head
+  (``openscene_out``).
 
-The network stops at the bottleneck: nothing on the QA path reads the
-decoder, and eager PyTorch would pay for it. The decoder tail and the
-``final`` head come with a later slice.
+``MinkUNet.forward(..., bottleneck_only=True)`` stops at the bottleneck:
+nothing on the QA path reads the decoder, and eager PyTorch would pay for
+it (the reference builds it and XLA drops it as dead code). Its parameters
+exist either way, as in the reference's tree.
 
 Gradients: conv0 and every k3 conv are same-coords odd-cube convs and take
 the gather-only backward on their own map (``symmetric_bwd``); the k2 down
-convs take it on the level's ``map_up`` (``transpose_map``). This is the
-reference's ``sparse.gather_bwd=true`` routing and the only backward the port
-has, so that field joins the routing fields it reads and ignores.
+convs take it on the finer level's ``map_up``, the transposed convs on the
+coarser level's ``map_down`` (``transpose_map``: a down map and an up map
+share their column order, so no kernel flip). This is the reference's
+``sparse.gather_bwd=true`` routing and the only backward the port has, so
+that field joins the routing fields it reads and ignores.
 """
 from __future__ import annotations
 
@@ -176,18 +182,23 @@ class ResLayer(nn.Module):
         return x
 
 
+# the decoder's stages: (transposed conv, its norm, layer, index into
+# ``cfg.planes``, input level, skip it concatenates); the last two run under
+# ``final_result`` only
+DECODER = (("convtr4p16s2", "bntr4", "block5", 4, 4, "out_b3p8"),
+           ("convtr5p8s2", "bntr5", "block6", 5, 3, "out_b2p4"),
+           ("convtr6p4s2", "bntr6", "block7", 6, 2, "out_b1p2"),
+           ("convtr7p2s2", "bntr7", "block8", 7, 1, "out_p1"))
+
+
 class MinkUNet(nn.Module):
-    """MinkUNet18A encoder half; its batch norms are always in evaluation
-    form. Submodule names follow the
-    reference's parameter tree (``conv0p1s1``, ``bn0``, ``conv1p1s2``, ...,
-    ``block4``)."""
+    """MinkUNet18A; its batch norms are always in evaluation form. Submodule
+    names follow the reference's parameter tree (``conv0p1s1``, ``bn0``,
+    ``conv1p1s2``, ..., ``block4``, ``convtr4p16s2``, ``bntr4``, ...,
+    ``block8``, ``final``)."""
 
     def __init__(self, cfg: SparseConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.final_result:
-            raise NotImplementedError(
-                "sparse.final_result (decoder tail + 768-d head) is not ported "
-                "yet: it comes with the decoder/segmentation slice")
         if not (cfg.dense_lookup and cfg.dense_downsample):
             raise NotImplementedError(
                 "the sort-based plan construction (sparse.dense_lookup=false or "
@@ -205,16 +216,51 @@ class MinkUNet(nn.Module):
             self.add_module(f"block{i}", ResLayer(ch, cfg.planes[i - 1],
                                                   cfg.layers[i - 1], dtype))
             ch = cfg.planes[i - 1]
+        skip_ch = {"out_b3p8": cfg.planes[2], "out_b2p4": cfg.planes[1],
+                   "out_b1p2": cfg.planes[0], "out_p1": d}
+        for conv, bn, layer, p, _, skip in self._decoder():
+            self.add_module(conv, SparseConv(ch, cfg.planes[p], 8, dtype))
+            self.add_module(bn, SparseBatchNorm(cfg.planes[p], dtype=dtype))
+            self.add_module(layer, ResLayer(cfg.planes[p] + skip_ch[skip],
+                                            cfg.planes[p], cfg.layers[p], dtype))
+            ch = cfg.planes[p]
+        if cfg.final_result:
+            self.final = SparseConv1x1(ch, cfg.out_channels, dtype, use_bias=True)
 
-    def forward(self, x: SparseVoxels, plan: Dict[str, Any]) -> Dict[str, Any]:
+    def _decoder(self):
+        return DECODER if self.cfg.final_result else DECODER[:2]
+
+    def forward(self, x: SparseVoxels, plan: Dict[str, Any],
+                bottleneck_only: bool = False) -> Dict[str, Any]:
+        """Returns ``feat_bottleneck`` (stride 16), ``feat_layer5`` (8),
+        ``feat_layer6`` (4) and, under ``final_result``, ``openscene_out``
+        (stride 1, ``out_channels``); only the first if
+        ``bottleneck_only``."""
         L = plan["levels"]
         x = x.replace(feats=x.feats.to(self.dtype))
         h = self.conv0p1s1(x, L[0]["map_k5"], L[0]["coords"], L[0]["mask"], 1)
         h = sparse_relu(self.bn0(h))
+        skips = {"out_p1": h}
         for i in range(1, 5):
             conv = getattr(self, f"conv{i}p{STRIDES[i - 1]}s2")
             h = conv(h, L[i]["map_down"], L[i]["coords"], L[i]["mask"], STRIDES[i],
                      transpose_map=L[i - 1]["map_up"])
             h = sparse_relu(getattr(self, f"bn{i}")(h))
             h = getattr(self, f"block{i}")(h, L[i]["map_k3"])
-        return {"feat_bottleneck": h}   # stride 16
+            skips[f"out_b{i}p{STRIDES[i]}"] = h
+        out = {"feat_bottleneck": h}
+        if bottleneck_only:
+            return out
+        for conv, bn, layer, _, i, skip in self._decoder():
+            # the transposed conv: level i's map_up gathers from level i, its
+            # backward runs on level i's map_down
+            h = getattr(self, conv)(h, L[i - 1]["map_up"], L[i - 1]["coords"],
+                                    L[i - 1]["mask"], STRIDES[i - 1],
+                                    transpose_map=L[i]["map_down"])
+            h = sparse_relu(getattr(self, bn)(h)).cat(skips[skip])
+            h = getattr(self, layer)(h, L[i - 1]["map_k3"])
+            if layer in ("block5", "block6"):
+                out[f"feat_layer{layer[-1]}"] = h
+        if self.cfg.final_result:
+            out["openscene_out"] = self.final(h)
+        return out

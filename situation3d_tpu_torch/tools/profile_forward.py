@@ -307,7 +307,8 @@ def main() -> int:
             device="cuda"), args.runs)
         x = SparseVoxels(batch["voxel_coords"], batch["voxel_feats"].to(torch.bfloat16),
                          batch["voxel_mask"], 1)
-        stages["sparse_encoder"], enc = _timed(lambda: model.scene_encoder(x, plan), args.runs)
+        stages["sparse_encoder"], enc = _timed(
+            lambda: model.scene_encoder(x, plan, bottleneck_only=True), args.runs)
         bott = enc["feat_bottleneck"]
         stages["token_pool"], toks = _timed(lambda: situated_token_pool(
             bott.coords, bott.feats, bott.mask, bott.stride, cfg.model.num_scene_tokens,

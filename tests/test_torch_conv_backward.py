@@ -2,7 +2,9 @@
 the transpose map for ``dx``, ``gather_rows`` + one product for ``dW``)
 against ``jax.grad`` of the reference's ``sparse_conv_apply`` with its
 gather-only VJP, on the maps of a real plan: the same-coords k3 and k5 maps
-(``symmetric_bwd``) and the k2 pair (``transpose_map``), both directions.
+(``symmetric_bwd``) and the k2 pair (``transpose_map``), both directions:
+the decoder's transposed convs run on ``map_up`` with ``map_down`` as their
+transpose map.
 
 float32, atol 1e-5 on gradients scaled to O(1): the two sides add the same
 products in another order. bfloat16 inputs: 2e-2 relative to the largest
@@ -49,6 +51,8 @@ def _maps(L, case):
         return L[1]["map_down"], L[0]["map_up"], False, L[0]["mask"], L[1]["mask"]
     if case == "k2_up":      # the transpose direction: coarse -> fine
         return L[0]["map_up"], L[1]["map_down"], False, L[1]["mask"], L[0]["mask"]
+    if case == "k2_up_level2":   # the decoder's convtr6 pair: level 2 -> level 1
+        return L[1]["map_up"], L[2]["map_down"], False, L[2]["mask"], L[1]["mask"]
     raise KeyError(case)
 
 
@@ -81,7 +85,7 @@ def _port_grads(nbr, tmap, sym, feats, w, cot, dtype=torch.float32):
     return torch.autograd.grad(out, (f, k), torch.from_numpy(cot).to(dtype))
 
 
-@pytest.mark.parametrize("case", ["k3", "k5", "k2_down", "k2_up"])
+@pytest.mark.parametrize("case", ["k3", "k5", "k2_down", "k2_up", "k2_up_level2"])
 def test_conv_backward_matches_reference_vjp(levels, case):
     args = _inputs(levels, case, seed=1)
     want_dx, want_dw = (np.asarray(g) for g in _jax_grads(*args))
@@ -107,7 +111,7 @@ def test_conv_backward_matches_plain_autograd_and_scatter_form(levels, case):
             np.testing.assert_allclose(t2n(g), t2n(x), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["k3", "k2_down"])
+@pytest.mark.parametrize("case", ["k3", "k2_down", "k2_up"])
 def test_conv_backward_bf16_inputs(levels, case):
     """bf16 activations: dy is cast to bf16, dx comes back in bf16, dW in the
     kernel's float32, both accumulated in float32."""

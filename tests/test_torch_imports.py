@@ -185,7 +185,7 @@ def test_training_entry_point_defaults_to_cuda_and_raises_without_a_card(name, t
 def test_unported_options_say_so():
     from situation3d_tpu_torch.models.sig3d import SIG3D
     for opt, word in (("model.lang_model=lstm", "lstm"),
-                      ("sparse.final_result=true", "final_result"),
+                      ("sparse.dense_lookup=false", "sort-based"),
                       ("sparse.dense_downsample=false", "sort-based")):
         cfg = tconfig.apply_overrides(_tiny(), [opt])
         with pytest.raises(NotImplementedError, match=word):

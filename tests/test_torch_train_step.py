@@ -13,6 +13,10 @@ the default, and trained too).
   which turns rounding noise on a near-zero gradient into a full-size move, so
   parameters are held to 1e-5 where ``|g| >= 1e-2`` and to the largest
   possible move elsewhere; frozen leaves are bit-unchanged.
+- the UNet's decoder (in the tree, unread by SIG3D's loss): trained but
+  unreached when the encoder is unfrozen, so its kernels move by decoupled
+  weight decay alone, as optax moves them (rtol 1e-6), and its batch-norm
+  parameters stay bit-unchanged; the trainable count equals the reference's.
 - ``Trainer.fit`` on the CPU: three steps in one go equal two steps, a
   checkpoint, a restore into a fresh trainer and one more step, bit for bit.
 - ``cli.train --synthetic`` runs two steps on the CPU.
@@ -47,6 +51,13 @@ B = 2
 LR = 1e-2
 GRAD_ATOL = 1e-4
 MODES = {"frozen": ("scene_encoder",), "unfrozen": ()}
+# the UNet's decoder modules at the tiny configuration (no final_result)
+DECODER = ("convtr4p16s2", "bntr4", "block5", "convtr5p8s2", "bntr5", "block6")
+
+
+def _in_decoder(name):
+    parts = name.split(".")
+    return parts[0] == "scene_encoder" and parts[1] in DECODER
 
 
 @pytest.fixture(scope="module")
@@ -135,9 +146,12 @@ def test_trainable_gradients_match_reference(ref, stepped):
     assert got_names == want_names
     enc = {n for n in want_names if n.startswith("scene_encoder")}
     assert bool(enc) == (stepped["mode"] == "unfrozen")
-    # the per-token situation heads feed no loss: no gradient on either side
+    # the per-token situation heads and the UNet's decoder (SIG3D reads only
+    # the bottleneck) feed no loss: no gradient on either side
     unreached = want_names - set(grads)
-    assert all(n.startswith(("position_head", "rotation_head")) for n in unreached)
+    assert all(n.startswith(("position_head", "rotation_head")) or _in_decoder(n)
+               for n in unreached)
+    assert {n for n in enc if _in_decoder(n)} <= unreached
     worst, largest = 0.0, 0.0
     for name in sorted(want_names):
         path, tr = paths[name]
@@ -152,7 +166,7 @@ def test_trainable_gradients_match_reference(ref, stepped):
         largest = max(largest, float(np.abs(want).max()))
     assert largest > 1.0 and worst <= GRAD_ATOL
     if stepped["mode"] == "unfrozen":
-        kernels = [n for n in enc if n.endswith(".kernel")]
+        kernels = [n for n in enc if n.endswith(".kernel") and not _in_decoder(n)]
         assert len(kernels) == 1 + 4 + 2 * 4 + 3      # conv0, downs, blocks, 1x1 shortcuts
         for name in kernels:
             assert float(grads[name].abs().max()) > 1e-4, name
@@ -176,6 +190,40 @@ def test_one_optimizer_step_matches_reference(ref, stepped):
         assert (np.abs(got - t2n(before[name])) <= bound).all(), name
         moved += int(sure.sum())
     assert moved > 1000
+
+
+def test_decoder_moves_by_weight_decay_alone(ref, stepped):
+    """Unfrozen: every decoder kernel is multiplied by ``1 - lr * wd`` as in
+    optax (rtol 1e-6), its batch-norm scales and biases are bit-unchanged.
+    Frozen: the whole decoder is bit-unchanged."""
+    paths, before = stepped["paths"], stepped["before"]
+    wd = ref["tcfg"].train.weight_decay
+    names = [n for n, _ in stepped["model"].named_parameters() if _in_decoder(n)]
+    # two transposed-conv kernels, two norms, a BasicBlock with its 1x1 shortcut each
+    assert len(names) == 2 + 2 * 2 + 2 * 9
+    for name in names:
+        p = dict(stepped["model"].named_parameters())[name]
+        got, was = t2n(p), t2n(before[name])
+        want = tree_get(stepped["new_params"], paths[name][0])
+        if stepped["mode"] == "frozen" or p.dim() < 2:
+            assert torch.equal(p, before[name]), name
+            np.testing.assert_array_equal(want, was, err_msg=name)
+            continue
+        assert name.endswith("kernel") and not np.array_equal(got, was), name
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0, err_msg=name)
+        np.testing.assert_allclose(got, was * (1 - LR * wd), rtol=1e-6, atol=0,
+                                   err_msg=name)
+
+
+def test_trainable_count_matches_reference(ref, stepped):
+    from situation3d_tpu_torch.train import optim as toptim
+    model = stepped["model"]
+    got = toptim.trainable_count(model, {n: p.requires_grad
+                                         for n, p in model.named_parameters()})
+    want = joptim.trainable_count(ref["variables"]["params"], stepped["mask"])
+    assert got == want and want[0] > 0
+    dec = [p for n, p in model.named_parameters() if _in_decoder(n)]
+    assert dec and all(p.requires_grad == (stepped["mode"] == "unfrozen") for p in dec)
 
 
 def test_frozen_encoder_runs_without_a_graph(ref):
