@@ -29,10 +29,11 @@ profiler) and bound.
 Bounds. ``bound_ms`` of a kernel is the larger of (bytes it must move: each
 input read once, each output written once) / 3.35 TB/s and (operations on
 this run's inputs) / peak rate: 989 TFLOP/s for the bf16 conv product. For a
-map kernel the table bytes are what the in-extent probes of THIS run touch
-(4 B per probe of the grid, 8 B per probe of the bit tables), capped at the
-table's size; for the conv the operations are 2*C_in*C_out per map entry
-that hits a voxel in THIS run's maps. The row gather and the scatter-add
+map kernel the table bytes are the distinct table entries that the in-extent
+probes of THIS run's valid voxels touch, each read once: 4 B a grid cell, 8 B
+a bit-table word with its prefix (a word holds 32 cells of a z-run); the k5
+route's output is its k5 and its k3 map. For the conv the operations are
+2*C_in*C_out per map entry that hits a voxel in THIS run's maps. The row gather and the scatter-add
 do no arithmetic to speak of: the gather reads each distinct table row that
 THIS run's indices select once (not the whole table), the scatter-add its
 whole source; indices read once, output written once. The segment plan reads
@@ -42,8 +43,8 @@ about 10 float32 operations a point a step (67 TFLOP/s peak); both bounds lie
 far below its time, because its npoint-1 steps depend on each other: it is
 bound by the latency of a step.
 
-Launch counts. ``launches`` of the conv and the two map kernels are read
-around one forward (41 conv launches around one whole-UNet forward in the
+Launch counts. ``launches`` of the conv and the map kernels (k3 grid, k3
+bits, k5 grid) are read around one forward (41 conv launches around one whole-UNet forward in the
 ``minkunet`` phase), those of ``gather_rows``, ``scatter_add_rows`` and
 ``segment_plan`` around
 one training step with the scene encoder unfrozen (the path that runs the
@@ -78,7 +79,7 @@ from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
                                             gather_rows, map_bits, map_lookup)
 from situation3d_tpu_torch.ops.voxelize import voxelize_torch
 from situation3d_tpu_torch.sparse import conv as sparse_conv
-from situation3d_tpu_torch.sparse.kernel_map import build_level_grid
+from situation3d_tpu_torch.sparse.kernel_map import build_level_grid, kernel_offsets
 from situation3d_tpu_torch.sparse.minkunet import (DECODER, STRIDES, MinkUNet,
                                                    build_unet_plan)
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
@@ -103,6 +104,7 @@ GRAD_RTOL_BF16 = 2e-2  # with bf16 inputs: dx, and the plain version's dW, round
 KERNEL_COUNTERS = {"fused_sparse_conv": (fused_conv, "launches"),
                    "k3_map_lookup": (map_lookup, "launches"),
                    "k3_map_lookup_bits": (map_bits, "launches"),
+                   "k5_map_lookup": (map_lookup, "k5_launches"),
                    "gather_rows": (gather_rows, "gather_launches"),
                    "scatter_add_rows": (gather_rows, "scatter_launches"),
                    "segment_plan": (gather_rows, "plan_launches"),
@@ -740,18 +742,25 @@ def measure_conv(name, nbr, in_mask, c_in, c_out, g) -> dict:
 SURFACE_VOXEL = 0.055   # metres: the room's floor and walls fill ~44,000 of 49,152 slots
 
 
-def surface_scene_convs(cfg, g) -> dict:
-    """conv0 and the level-1 k3 class on a surface-like scene: the floor and
-    walls of ``make_detection_arrays``' 8 x 6 x 3 m room (its box faces left
-    out), 400,000 points a scene, voxelized at 5.5 cm into the level-0
-    capacity, so every surface cell is a voxel, as in a scan. Reported
-    beside the main path's totals, not in them."""
+def surface_scene_voxels(cfg):
+    """The floor and walls of ``make_detection_arrays``' 8 x 6 x 3 m room
+    (its box faces left out), 400,000 points a scene, voxelized at 5.5 cm
+    into the level-0 capacity, so every surface cell is a voxel. Returns
+    (coords, mask, voxels a scene)."""
     arr = make_detection_arrays(BATCH, 400000, np.random.RandomState(SEED + 30))
     pts = torch.as_tensor(arr["point_clouds"], device=DEV)
     keep = torch.as_tensor(arr["vote_label_mask"] == 0, device=DEV)   # floor and walls
     coords = torch.floor(pts / SURFACE_VOXEL).to(torch.int32).clamp(min=0)
+    vc, vm, _, n_unique = voxelize_torch(coords, keep, capacity=cfg.sparse.capacities[0])
+    return vc, vm, n_unique
+
+
+def surface_scene_convs(cfg, g) -> dict:
+    """conv0 and the level-1 k3 class on the surface-like scene
+    (``surface_scene_voxels``: every surface cell is a voxel, as in a scan).
+    Reported beside the main path's totals, not in them."""
     caps = cfg.sparse.capacities
-    vc, vm, _, n_unique = voxelize_torch(coords, keep, capacity=caps[0])
+    vc, vm, n_unique = surface_scene_voxels(cfg)
     plan = build_unet_plan(vc, vm, caps, tuple(cfg.sparse.grid_extent), device=DEV)
     L = plan["levels"]
     sp = cfg.sparse
@@ -766,6 +775,128 @@ def surface_scene_convs(cfg, g) -> dict:
     return out
 
 
+# map kernel -> (kernel, plain version, name filter of its device kernel,
+# kernel size); the k5 route also writes the level's k3 map
+MAP_KERNELS = {
+    "k5_map_lookup": (map_lookup.k5_map_lookup, map_lookup.k5_map_lookup_plain,
+                      "grid_map_kernel<5", 5),
+    "k3_map_lookup": (map_lookup.k3_map_lookup, map_lookup.k3_map_lookup_plain,
+                      "grid_map_kernel<3", 3),
+    "k3_map_lookup_bits": (map_bits.k3_map_lookup_bits, map_bits.k3_map_lookup_bits_plain,
+                           "bits_map_kernel", 3)}
+
+
+def _same_maps(got, want) -> bool:
+    got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+    return all(g.dtype == torch.int32 and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def touched_table_bytes(cells, mask, extent_cells, kernel_size, cells_per_entry,
+                        entry_bytes) -> int:
+    """Bytes of a level's table that the in-extent probes of the valid
+    voxels touch: ``entry_bytes`` for each distinct (sample, entry), an entry
+    holding ``cells_per_entry`` consecutive cells of the flat order (1 for
+    the int32 grid; 32 for a bit-table word, read with its prefix)."""
+    X, Y, Z = extent_cells
+    offs = torch.as_tensor(kernel_offsets(kernel_size), dtype=torch.int64, device=cells.device)
+    hi = torch.tensor(extent_cells, device=cells.device)
+    n = 0
+    for b in range(mask.shape[0]):
+        q = cells[b][mask[b]].to(torch.int64)[:, None, :] + offs
+        q = q[((q >= 0) & (q < hi)).all(-1)]
+        n += torch.unique(((q[:, 0] * Y + q[:, 1]) * Z + q[:, 2]) // cells_per_entry).numel()
+    return n * entry_bytes
+
+
+def measure_map(records, name, args, cells_per_entry, entry_bytes, **shape):
+    """One map kernel against its plain version (exact), its times (CUDA
+    events around the call; the kernel's device time from the profiler)
+    and its bound: cells, mask and the map(s) once, and the table entries
+    that the probes of this run's valid voxels touch once
+    (``touched_table_bytes``). Adds to ``records[name]``; returns the
+    kernel's maps."""
+    kern, plain, kname, ks = MAP_KERNELS[name]
+    cells, mask, extent_cells = args[-4], args[-3], args[-2]
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    if not _same_maps(got, want):
+        fail(f"{name} {shape}: kernel != plain version")
+    outs = got if isinstance(got, tuple) else (got,)
+    table = touched_table_bytes(cells, mask, extent_cells, ks, cells_per_entry, entry_bytes)
+    bytes_moved = (cells.numel() * 4 + mask.numel() + sum(o.numel() * 4 for o in outs)
+                   + table)
+    ms, pms = time_cuda(lambda: kern(*args)), time_cuda(lambda: plain(*args), iters=3)
+    dms = device_ms(lambda: kern(*args), kname)
+    bound = bytes_moved / HBM_BYTES_PER_S * 1e3
+    rec = records[name]
+    for k, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms), ("bound_ms", bound)):
+        rec[k] += v
+    B, V = mask.shape
+    rec["shapes"].append({**shape, "cells": list(extent_cells), "B": B, "V": V,
+                          "table_bytes_touched": table,
+                          "ms": round(ms, 4), "device_ms": round(dms, 5),
+                          "plain_ms": round(pms, 4), "bound_ms": round(bound, 5),
+                          "exact": True})
+    return got
+
+
+def check_k5_edges(cfg, batch, rec) -> None:
+    """The k5 route (and its k3 map) against its plain version, exact, at
+    full width on an edge batch — voxels at negative cells and beyond the
+    512 x 512 x 256 extent, voxels on the extent's faces and corners,
+    masked rows, a sample with no valid voxel — and on the surface-like
+    scene's level 0."""
+    extent = tuple(cfg.sparse.grid_extent)
+    X, Y, Z = extent
+    coords = batch["voxel_coords"].clone()
+    mask = batch["voxel_mask"].clone()
+    outside = [[-1, 0, 0], [-2, -2, -2], [0, -1, 100], [5, 5, -1], [X, 0, 0], [0, Y, 0],
+               [0, 0, Z], [X + 1, 300, 100], [X + 88, Y + 88, Z + 44], [-5, Y + 8, -3],
+               [X, Y - 1, Z - 1], [-1, Y, Z]]
+    faces = [[0, 0, 0], [X - 1, Y - 1, Z - 1], [0, Y - 1, 0], [X - 1, 0, Z - 1],
+             [1, 1, 1], [X - 2, Y - 2, Z - 2], [0, 200, Z - 1], [X - 1, 100, 0]]
+    coords[0, :len(outside)] = torch.tensor(outside, dtype=torch.int32, device=DEV)
+    coords[3, :len(faces)] = torch.tensor(faces, dtype=torch.int32, device=DEV)
+    mask[0, :len(outside)] = True
+    mask[3, :len(faces)] = True
+    mask[1, 100:2100] = False
+    mask[2] = False
+    cases = {"edge batch": (coords, mask)}
+    vc, vm, _ = surface_scene_voxels(cfg)
+    cases["surface scene"] = (vc, vm)
+    kern, plain, _, _ = MAP_KERNELS["k5_map_lookup"]
+    for case, (c, m) in cases.items():
+        grid, misses = build_level_grid(c, m, 1, extent)
+        args = (grid, c, m, extent, m.shape[1])
+        if not _same_maps(kern(*args), plain(*args)):
+            fail(f"k5_map_lookup {case}: kernel != plain version")
+        rec.setdefault("edge_cases_exact", []).append(
+            {"case": case, "extent_misses": [int(x) for x in misses]})
+        del grid
+    in_ext = ((coords >= 0) & (coords < torch.tensor(extent, device=DEV))).all(-1)
+    want = [int(x) for x in (mask & ~in_ext).sum(1)]
+    if rec["edge_cases_exact"][0]["extent_misses"] != want or want[0] < len(outside):
+        fail(f"k5_map_lookup edge batch: extent_misses "
+             f"{rec['edge_cases_exact'][0]['extent_misses']} != {want}")
+
+
+def check_plan_against_cpu(cfg, batch, plan) -> None:
+    """The whole plan built on the card (kernels) equal, every tensor, to
+    the plan built on the CPU from the same voxels (plain versions)."""
+    sp = cfg.sparse
+    cpu = build_unet_plan(batch["voxel_coords"].cpu(), batch["voxel_mask"].cpu(),
+                          sp.capacities, tuple(sp.grid_extent), device="cpu")
+    for i, (gl, cl) in enumerate(zip(plan["levels"], cpu["levels"])):
+        if set(gl) != set(cl):
+            fail(f"plan level {i}: keys {sorted(gl)} != {sorted(cl)} on the CPU")
+        for key in cl:
+            if not torch.equal(gl[key].cpu(), cl[key]):
+                fail(f"plan level {i} {key}: card != CPU (plain versions)")
+    for key in cpu["overflow"]:
+        if not torch.equal(plan["overflow"][key].cpu(), cpu["overflow"][key]):
+            fail(f"plan overflow {key}: card != CPU")
+
+
 def phase_kernels(cfg, batch) -> dict:
     """Each kernel against its plain version on the card, at the main path's
     shapes, plus timings and bounds. Returns per-kernel records (without the
@@ -778,54 +909,40 @@ def phase_kernels(cfg, batch) -> dict:
     B = batch["voxel_mask"].shape[0]
     records = {}
 
-    # ---- the two map kernels --------------------------------------------
-    for name in ("k3_map_lookup", "k3_map_lookup_bits"):
-        records[name] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                         "max_abs_err": 0, "shapes": []}
+    # ---- the map kernels: k3 at levels 1-4, k5 (+ its k3) at level 0 ------
+    records.update({name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                           "bound_by": "bytes", "max_abs_err": 0, "shapes": []}
+                    for name in MAP_KERNELS})
+    grid, _ = build_level_grid(L[0]["coords"], L[0]["mask"], 1, extent)
+    args = (grid, L[0]["coords"], L[0]["mask"], extent, L[0]["coords"].shape[1])
+    got = measure_map(records, "k5_map_lookup", args, 1, 4, level=0)
+    if not (torch.equal(got[0], L[0]["map_k5"]) and torch.equal(got[1], L[0]["map_k3"])):
+        fail("k5_map_lookup level 0: kernel != the plan's maps")
+    del grid, args, got
     for i in range(1, 5):
         s = STRIDES[i]
         cells = tuple(e // s for e in extent)
         n_cells = cells[0] * cells[1] * cells[2]
-        V = L[i]["coords"].shape[1]
         out_cells = torch.div(L[i]["coords"], s, rounding_mode="floor")
         mask = L[i]["mask"]
         if map_lookup.map_lookup_fits(n_cells, cells[2]):
             name = "k3_map_lookup"
             grid, _ = build_level_grid(L[i]["coords"], mask, s, extent)
-            args = (grid, out_cells, mask, cells, V)
-            kern, plain = map_lookup.k3_map_lookup, map_lookup.k3_map_lookup_plain
-            table_bytes, probe_bytes = grid.numel() * 4, 4
+            args = (grid, out_cells, mask, cells, mask.shape[1])
+            cells_per_entry, entry_bytes = 1, 4
         elif map_bits.map_bits_fits(n_cells, cells[2]):
             name = "k3_map_lookup_bits"
             bits, pfx = map_bits.build_level_bits(L[i]["coords"], mask, s, extent)
-            args = (bits, pfx, out_cells, mask, cells, V)
-            kern, plain = (map_bits.k3_map_lookup_bits,
-                           map_bits.k3_map_lookup_bits_plain)
-            table_bytes, probe_bytes = 2 * bits.numel() * 4, 8
+            args = (bits, pfx, out_cells, mask, cells, mask.shape[1])
+            cells_per_entry, entry_bytes = 32, 8
         else:
             fail(f"level {i} routes to neither map kernel")
-        got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        if got.dtype != torch.int32 or not torch.equal(got, want):
-            fail(f"{name} level {i}: kernel != plain version")
+        got = measure_map(records, name, args, cells_per_entry, entry_bytes, level=i)
         if not torch.equal(got, L[i]["map_k3"]):
             fail(f"{name} level {i}: kernel != the plan's map")
-        # in-extent probes of valid voxels = what this run's data reads
-        probes = int(mask.sum()) * 27      # upper bound; extent edges are rare
-        bytes_moved = (out_cells.numel() * 4 + mask.numel() + got.numel() * 4
-                       + min(probes * probe_bytes, table_bytes))
-        rec = records[name]
-        ms, pms = time_cuda(lambda: kern(*args)), time_cuda(lambda: plain(*args))
-        bound = bytes_moved / HBM_BYTES_PER_S * 1e3
-        rec["ms"] += ms
-        rec["plain_ms"] += pms
-        rec["bound_ms"] += bound
-        rec["shapes"].append({"level": i, "cells": list(cells), "B": B, "V": V,
-                              "ms": round(ms, 4), "plain_ms": round(pms, 4),
-                              "bound_ms": round(bound, 5), "exact": True})
-        del args, got, want
-    for name in ("k3_map_lookup", "k3_map_lookup_bits"):
-        records[name]["bound_by"] = "bytes"
+        del args, got
+    check_k5_edges(cfg, batch, records["k5_map_lookup"])
+    check_plan_against_cpu(cfg, batch, plan)
 
     # ---- the fused conv: every class of the encoder (the main path's
     # total), of the decoder and of a surface-like scene (beside it) -------
@@ -885,7 +1002,7 @@ def phase_forward(cfg, batch):
             if not bool(torch.isfinite(out[k].float()).all()):
                 fail(f"forward output {k} is not finite")
         expected = {"fused_sparse_conv": 1 + 4 + 2 * sum(cfg.sparse.layers[:4]),
-                    "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
+                    "k3_map_lookup": 3, "k3_map_lookup_bits": 1, "k5_map_lookup": 1,
                     "gather_rows": 1, "scatter_add_rows": 2,   # token pooling
                     "segment_plan": 1, "fps": 0}        # one plan, two sums
         if counts != expected:
@@ -938,7 +1055,7 @@ def phase_minkunet(cfg, batch) -> dict:
         # transposed convs, 2 convs a block (41 at the defaults)
         n_conv = 1 + 4 + 2 * sum(sp.layers[:4]) + 4 + 2 * sum(sp.layers[4:8])
         expected.update({"fused_sparse_conv": n_conv, "k3_map_lookup": 3,
-                         "k3_map_lookup_bits": 1})
+                         "k3_map_lookup_bits": 1, "k5_map_lookup": 1})
         if counts != expected:
             fail(f"minkunet: kernel launches on one forward {counts} != expected {expected}")
         o = out["openscene_out"].feats
@@ -990,15 +1107,16 @@ def phase_minkunet(cfg, batch) -> dict:
 
 
 def _expected_train_counts(cfg, unfrozen: bool) -> dict:
-    """Kernel launches of one training step. Forward: 21 convs, 3 + 1 map
-    kernels, 1 token gather, 2 segment sums (features, counts) over 1 segment
-    plan. An unfrozen encoder adds, backward: 20 convs as ``dx`` (conv0's
-    input needs none), one dy-gather per chunk of offsets per conv for
-    ``dW``, the gather that is the segment sum's backward and the scatter-add
-    (with its own plan) that is the token gather's."""
+    """Kernel launches of one training step. Forward: 21 convs, 3 + 1 + 1
+    map kernels (k3 grid, k3 bits, k5), 1 token gather, 2 segment sums
+    (features, counts) over 1 segment plan. An unfrozen encoder adds,
+    backward: 20 convs as ``dx`` (conv0's input needs none), one dy-gather
+    per chunk of offsets per conv for ``dW``, the gather that is the segment
+    sum's backward and the scatter-add (with its own plan) that is the token
+    gather's."""
     n_conv = 1 + 4 + 2 * sum(cfg.sparse.layers[:4])
     exp = {"fused_sparse_conv": n_conv, "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
-           "gather_rows": 1, "scatter_add_rows": 2, "segment_plan": 1, "fps": 0}
+           "k5_map_lookup": 1, "gather_rows": 1, "scatter_add_rows": 2, "segment_plan": 1, "fps": 0}
     if unfrozen:
         B = BATCH
         chunks = 0
@@ -1498,6 +1616,9 @@ def main() -> int:
                           "situation3d_tpu/ops/pallas/map_lookup.py:80", counts, forward),
         "k3_map_lookup_bits": ("situation3d_tpu_torch/csrc/map_bits.cu",
                                "situation3d_tpu/ops/pallas/map_bits.py:161", counts, forward),
+        "k5_map_lookup": ("situation3d_tpu_torch/csrc/map_lookup.cu",
+                          "situation3d_tpu/sparse/kernel_map.py:144 lookup_kernel_map_dense "
+                          "(XLA, level 0)", counts, forward),
         "gather_rows": ("situation3d_tpu_torch/csrc/gather_rows.cu",
                         "situation3d_tpu/ops/pallas/gather.py:39", train_counts, step),
         "scatter_add_rows": ("situation3d_tpu_torch/csrc/gather_rows.cu",
@@ -1521,6 +1642,8 @@ def main() -> int:
         if name in ("gather_rows", "scatter_add_rows", "segment_plan"):
             k["launches_votenet_forward"] = det_counts["forward"][name]
             k["launches_votenet_forward_backward"] = det_counts["forward_backward"][name]
+        if name in MAP_KERNELS:
+            k["device_ms"] = r["device_ms"]
         if name == "scatter_add_rows":
             k["sum_only_ms"] = r["sum_only_ms"]     # ms is the whole call: sums + plans
         if name == "fused_sparse_conv":

@@ -1,11 +1,12 @@
 """Build-at-first-use loader for the port's CUDA kernels.
 
-The sources under ``situation3d_tpu_torch/csrc/*.cu`` have a plain C
-interface. On first use they are compiled with ``nvcc`` for ``sm_90a`` (one
-``nvcc -c`` per source, all started together, then one link) into ONE shared
-library under ``situation3d_tpu_torch/_build/<hash of sources and flags>/``
-and loaded with ``ctypes``. Nothing but the sources in the package goes into
-the build. A failed build raises; nothing falls back.
+The sources under ``situation3d_tpu_torch/csrc/*.cu`` (and the headers
+``csrc/*.cuh`` they include) have a plain C interface. On first use they are
+compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all
+started together, then one link) into ONE shared library under
+``situation3d_tpu_torch/_build/<hash of sources and flags>/`` and loaded with
+``ctypes``. Nothing but the sources in the package goes into the build. A
+failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ build_log: str = ""          # nvcc/ptxas output (registers, shared memory, spil
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream is a c_void_p)
-    "s3d_k3_map_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "s3d_map_lookup": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "s3d_k3_map_lookup_bits": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "s3d_fused_sparse_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "s3d_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -64,7 +65,7 @@ def _sources():
 
 def _source_hash(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

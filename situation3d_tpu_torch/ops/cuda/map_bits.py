@@ -3,11 +3,14 @@ the function that makes its tables, and plain version.
 
 Source note. Replaces the TPU kernel ``situation3d_tpu/ops/pallas/
 map_bits.py`` (``_bits_kernel`` / ``k3_map_lookup_bits``; helper
-``build_level_bits``). Bound on an H100 by bytes: two 4-byte table reads and
-one 4-byte store per map entry; the popcount is one instruction. The design
-(``csrc/map_bits.cu``) is one thread per (sample, voxel, offset), words read
-as ``uint32_t`` and ranked with ``__popc``; bounds and mask are applied in
-the kernel. The tables are 1/16 of the int32 grid's bytes, so a level whose
+``build_level_bits``). Bound on an H100 by bytes: the map written once and
+the table words its probes touch read once; the popcount is one instruction.
+The design (``csrc/map_bits.cu`` on ``csrc/map_tile.cuh``): a block stages
+the rows of 64 voxels, read once; a thread takes one (voxel, dx, dy) column,
+a z-run of 3 cells, and reads its word and prefix once (twice where the run
+crosses a word), words as ``uint32_t``, each cell ranked with ``__popc``;
+the rows leave in 16-byte stores. Bounds and mask are applied in the
+kernel. The tables are 1/16 of the int32 grid's bytes, so a level whose
 grid is tens of MB is probed from L2-sized tables. The TPU kernel's packed
 128-lane rows, Lo/Hi word selects and sign-safe shift tricks have no
 counterpart here.
@@ -147,6 +150,8 @@ def k3_map_lookup_bits(bits: torch.Tensor, pfx: torch.Tensor,
                                         (X, Y, Z), v_in)
     if any(t.device != bits.device for t in (pfx, out_cells, out_mask)):
         raise ValueError("k3_map_lookup_bits: all tensors must be on one device")
+    if B * V >= 2 ** 31 or X * Y * Z >= 2 ** 31:
+        raise ValueError("k3_map_lookup_bits: B*V and X*Y*Z must stay below 2^31")
     global launches
     lib = _build.load_library()
     bits, pfx, out_cells, out_mask = (t.contiguous() for t in

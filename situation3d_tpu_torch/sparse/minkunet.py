@@ -25,7 +25,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -35,6 +34,7 @@ from situation3d_tpu_torch.ops.cuda.map_bits import (build_level_bits,
                                                      k3_map_lookup_bits,
                                                      map_bits_fits)
 from situation3d_tpu_torch.ops.cuda.map_lookup import (k3_map_lookup,
+                                                       k5_map_lookup,
                                                        map_lookup_fits)
 from situation3d_tpu_torch.sparse.conv import (SparseBatchNorm, SparseConv,
                                                SparseConv1x1, sparse_relu)
@@ -73,8 +73,11 @@ def build_unet_plan(
     dense-downsampled (``i >= 1``) and ``map_bits_fits`` holds, else the
     plain dense lookup. At the default extent: level 1 -> bits, levels 2-4
     -> grid. This is routing parity with the reference, not a limit of the
-    card. Level 0 builds the k5 map with plain torch ops and slices the k3
-    map out of it. The tensors' device decides kernel vs plain version.
+    card. Level 0's k5 map, which the reference builds with its XLA dense
+    lookup, goes through the int32-grid kernel with the 125 k5 offsets: the
+    same function, whose one pass also writes the level's k3 map (the
+    reference slices it out of the k5 map). The tensors' device decides
+    kernel vs plain version.
 
     Returns a dict:
       levels: list over strides of {coords, mask, map_k3}; level 0 also has
@@ -100,11 +103,6 @@ def build_unet_plan(
         prev["map_up"] = umap
         overflow["voxels_dropped"] += dropped
 
-    k5_np = kernel_offsets(5)
-    k3_in_k5 = torch.as_tensor(
-        [int(np.flatnonzero((k5_np == o).all(1))[0]) for o in kernel_offsets(3)],
-        device=dev)
-
     for i, lvl in enumerate(levels):
         s = STRIDES[i]
         v_in = lvl["coords"].shape[1]
@@ -119,10 +117,9 @@ def build_unet_plan(
         if not use_bits:
             grid, misses = build_level_grid(lvl["coords"], lvl["mask"], s, extent)
             overflow["extent_misses"] += misses
-        if i == 0:
-            lvl["map_k5"] = lookup_kernel_map_dense(
-                grid, v_in, lvl["coords"], lvl["mask"], k5_np, s, s, extent)
-            lvl["map_k3"] = lvl["map_k5"][:, :, k3_in_k5]
+        if i == 0:      # stride 1: the coords are the cells
+            lvl["map_k5"], lvl["map_k3"] = k5_map_lookup(grid, lvl["coords"],
+                                                         lvl["mask"], cells, v_in)
         elif use_grid:
             lvl["map_k3"] = k3_map_lookup(grid, lvl["coords"] // s, lvl["mask"],
                                           cells, v_in)

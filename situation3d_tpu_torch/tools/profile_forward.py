@@ -14,17 +14,21 @@ the evaluation-form forward of the detector (float32) and its stages — the
 five sampling launches, the radius queries, the gathers, the pointwise MLPs
 with their pooling, the 3-NN search, the loss — and the training form's
 forward + loss and backward, and profiles one forward and one forward +
-backward.
+backward. The SIG3D forward's JSON holds ``plan_build``, a profile of the plan
+build alone (``build_unet_plan``: host ms, device-busy ms, launches, top
+kernels, peak memory).
 
 Prints one JSON object: the card's name and power limit, host-clock stage
 times (each stage ends in ``torch.cuda.synchronize()``; median of a few
 runs), the device-busy share of one forward and the top device kernels by
-time from ``torch.profiler``. With ``--out`` it also writes the Chrome trace.
+time from ``torch.profiler``, and a digest of the forward's ``answer_scores``.
+With ``--out`` it also writes the Chrome trace.
 Weights are random (seeded); the batch is the pinned synthetic scene batch.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -67,6 +71,40 @@ def _device_rows(prof):
             rows.append((dev_us / 1e3, e.count, e.key[:90]))
     rows.sort(reverse=True)
     return rows
+
+
+def _profiled(fn, runs) -> dict:
+    """Host-clocked ms of ``fn`` (median of ``runs``), and from the profile of
+    one call its device-busy ms, device launches, top kernels and peak
+    memory above what was allocated before the call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    host_ms, out = _timed(fn, runs)
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    rows = _device_rows(prof)
+    return {"host_ms": round(host_ms, 3),
+            "device_busy_ms": round(sum(r[0] for r in rows), 4),
+            "launches": sum(r[1] for r in rows),
+            "peak_memory_gb": round(peak / 2 ** 30, 3),
+            "top_device_kernels": [{"ms": round(ms, 4), "calls": n, "name": k}
+                                   for ms, n, k in rows[:12]]}
+
+
+def profile_plan(args, cfg, batch) -> dict:
+    """The plan build alone at the configuration's capacities and extent."""
+    sp = cfg.sparse
+    with torch.inference_mode():
+        return _profiled(lambda: build_unet_plan(
+            batch["voxel_coords"], batch["voxel_mask"], sp.capacities,
+            tuple(sp.grid_extent), device="cuda"), args.runs)
 
 
 def profile_train(args, cfg, card) -> dict:
@@ -293,6 +331,7 @@ def main() -> int:
         return 0
     sp = cfg.sparse
     batch, _, _ = make_scene_batch(cfg, args.batch, np.random.RandomState(0), "cuda")
+    plan_build = profile_plan(args, cfg, batch)
     model = SIG3D(cfg, 706, dtype=torch.bfloat16, device="cuda")
     init_random_weights(model, 0)
     draws = make_sample_draws(args.batch, sp.capacities[-1], cfg.model.num_scene_tokens,
@@ -322,7 +361,7 @@ def main() -> int:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model(batch, sample_draws=draws)
+            scores = model(batch, sample_draws=draws)["answer_scores"]
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     rows = _device_rows(prof)
@@ -338,6 +377,11 @@ def main() -> int:
                               if busy_ms else "not measured"),
         "top_device_kernels": [{"ms": round(ms, 3), "calls": n, "name": k}
                                for ms, n, k in rows[:25]],
+        "plan_build": plan_build,
+        # seeded weights, batch and draws: equal digests on two trees mean
+        # bit-equal answers
+        "answer_scores_sha256": hashlib.sha256(
+            scores.float().cpu().numpy().tobytes()).hexdigest()[:16],
     }
     if args.out:
         import os

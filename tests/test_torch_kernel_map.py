@@ -148,18 +148,27 @@ def test_build_unet_plan_bit_for_bit(routing):
 
 
 def test_build_unet_plan_routes_like_the_reference(monkeypatch):
-    """At the default extent level 1 goes to the bit-table kernel and levels
-    2-4 to the int32-grid kernel (counted through the wrappers)."""
+    """At the default extent level 0's k5 map (with its k3 map) goes to the
+    int32-grid kernel with the k5 offsets, level 1 to the bit-table kernel
+    and levels 2-4 to the int32-grid kernel (counted through the
+    wrappers)."""
     from situation3d_tpu_torch.sparse import minkunet as mu
     calls = []
-    real_grid, real_bits = mu.k3_map_lookup, mu.k3_map_lookup_bits
+    real_grid, real_bits, real_k5 = mu.k3_map_lookup, mu.k3_map_lookup_bits, mu.k5_map_lookup
     monkeypatch.setattr(mu, "k3_map_lookup",
                         lambda *a: calls.append(("grid", a[3])) or real_grid(*a))
     monkeypatch.setattr(mu, "k3_map_lookup_bits",
                         lambda *a: calls.append(("bits", a[4])) or real_bits(*a))
+    monkeypatch.setattr(mu, "k5_map_lookup",
+                        lambda *a: calls.append(("k5", a[3])) or real_k5(*a))
     caps = (64, 32, 16, 8, 4)
     coords, mask = _scene(5, 1, caps[0], 50, (300, 300, 150))
     # level 0 of the default extent is a 268 MB grid per sample: B = 1 only
-    mu.build_unet_plan(coords, mask, caps, (512, 512, 256), device="cpu")
-    assert calls == [("bits", (256, 256, 128)), ("grid", (128, 128, 64)),
-                     ("grid", (64, 64, 32)), ("grid", (32, 32, 16))]
+    plan = mu.build_unet_plan(coords, mask, caps, (512, 512, 256), device="cpu")
+    assert calls == [("k5", (512, 512, 256)), ("bits", (256, 256, 128)),
+                     ("grid", (128, 128, 64)), ("grid", (64, 64, 32)), ("grid", (32, 32, 16))]
+    level0 = plan["levels"][0]
+    assert level0["map_k5"].shape == (1, caps[0], 125)
+    assert torch.equal(level0["map_k3"], level0["map_k5"][:, :, [
+        int(np.flatnonzero((tkm.kernel_offsets(5) == o).all(1))[0])
+        for o in tkm.kernel_offsets(3)]])
