@@ -6,8 +6,11 @@ then drives the port's main paths — the full-width SIG3D scene-QA forward, a
 few optimizer steps of the trainer in both training configurations (scene
 encoder frozen, and trained too: the UNet's decoder then moves by weight
 decay alone), the scene-cache serving form, the whole MinkUNet with its
-decoder and 768-d head (``sparse.final_result``), and the full-width VoteNet
-detection path (forward, boxes and mAP, detection loss and its gradients) —
+decoder and 768-d head (``sparse.final_result``), the full-width VoteNet
+detection path (forward, boxes and mAP, detection loss and its gradients),
+and SIG3D trained and evaluated from SQA3D-layout files written on the spot
+through ``cli.train`` / ``cli.eval`` (plain, scene cache, segmentation,
+visualization), with host-built UNet plans held against the device's —
 and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
@@ -62,11 +65,17 @@ import time
 import numpy as np
 import torch
 
+from situation3d_tpu_torch.cli import eval as cli_eval
+from situation3d_tpu_torch.cli import train as cli_train
 from situation3d_tpu_torch.config import Config, apply_overrides
+from situation3d_tpu_torch.data.prefetch import make_train_pipeline
 from situation3d_tpu_torch.data.scannet_preprocess import ScannetDatasetConfig
+from situation3d_tpu_torch.data.sqa3d import SQA3DDataset, batch_iterator, load_scene
 from situation3d_tpu_torch.data.synthetic import (make_detection_arrays,
                                                   make_detection_batch,
-                                                  make_scene_batch)
+                                                  make_scene_batch, write_sqa3d_files)
+from situation3d_tpu_torch.data.vocab import build_answer_vocab, load_answer_counter
+from situation3d_tpu_torch.device import tree_to_device
 from situation3d_tpu_torch.eval.detection import (APCalculator,
                                                   parse_groundtruths,
                                                   parse_predictions)
@@ -74,18 +83,19 @@ from situation3d_tpu_torch.eval.serving import SceneCache
 from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
                                                 make_sample_draws)
 from situation3d_tpu_torch.models.votenet import VoteNet
-from situation3d_tpu_torch.ops import pointnet2
+from situation3d_tpu_torch.ops import native, pointnet2
 from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
                                             gather_rows, map_bits, map_lookup)
-from situation3d_tpu_torch.ops.voxelize import voxelize_torch
+from situation3d_tpu_torch.ops.voxelize import voxelize_np, voxelize_torch
 from situation3d_tpu_torch.sparse import conv as sparse_conv
+from situation3d_tpu_torch.sparse.host_plan import build_host_plan, compare_with_device_plan
 from situation3d_tpu_torch.sparse.kernel_map import build_level_grid, kernel_offsets
 from situation3d_tpu_torch.sparse.minkunet import (DECODER, STRIDES, MinkUNet,
                                                    build_unet_plan)
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
 from situation3d_tpu_torch.train.detection_losses import get_detection_loss
 from situation3d_tpu_torch.train.losses import get_loss
-from situation3d_tpu_torch.train.trainer import create_train_state, train_step
+from situation3d_tpu_torch.train.trainer import Trainer, create_train_state, train_step
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -156,15 +166,16 @@ def time_cuda(fn, iters: int = 5, warmup: int = 2) -> float:
     return float(np.mean([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
+# default widths (12-layer MPNet at 768, 706 answers, text length 100,
+# capacities 49152..3072, extent 512x512x256) with the slice's sparse switches
+FULL_WIDTH = ["data.num_answers=706", "sparse.conv0_zwin=false",
+              "sparse.fused_conv=true", "sparse.pallas_map=true",
+              "sparse.pallas_map_bits=true", "sparse.dense_lookup=true",
+              "sparse.dense_downsample=true", "sparse.final_result=false"]
+
+
 def full_width_cfg() -> Config:
-    """Default widths (12-layer MPNet at 768, 706 answers, text length 100,
-    capacities 49152..3072, extent 512x512x256) with the slice's sparse
-    switches."""
-    return apply_overrides(Config(), [
-        "data.num_answers=706", "sparse.conv0_zwin=false",
-        "sparse.fused_conv=true", "sparse.pallas_map=true",
-        "sparse.pallas_map_bits=true", "sparse.dense_lookup=true",
-        "sparse.dense_downsample=true", "sparse.final_result=false"])
+    return apply_overrides(Config(), FULL_WIDTH)
 
 
 def small_cfg() -> Config:
@@ -1565,10 +1576,334 @@ def phase_reference_detection() -> None:
          gradient_max_abs=gmax, launches=read_counts())
 
 
+# ---------------------------------------------------------------------------
+# SIG3D trained and evaluated from SQA3D-layout files through the entry points
+
+SQA_POINTS = 120000   # points a scene: the size of a ScanNet vh_clean_2 mesh
+SQA_STEPS = 4
+SQA_THIN = 10000      # voxels a sample kept for the full-plan comparison (no level overflows)
+FEAT_RTOL = 2e-2      # bf16 feat_bottleneck, host plan vs device plan, relative to its largest value
+_SITUATIONS = [
+    "I am standing by the window with the bed on my left and the door behind me, "
+    "looking at the desk where my laptop is.",
+    "I am sitting on the sofa facing the television; the kitchen counter is to my right.",
+    "I just walked in through the door and the table with four chairs is in front of me.",
+]
+_QUESTIONS = ["What is on the table in front of me?", "Is the door behind me open?",
+              "How many chairs are there to my left?", "Which way should I turn to reach "
+              "the sink?", "Can I see the window without turning around?",
+              "What color is the cabinet on my right?"]
+
+
+def write_sqa3d_room_files(root: str) -> list:
+    """Three rooms (8 x 6 x 3 m: floor, walls and 4-10 boxes, as
+    ``make_detection_arrays`` builds them) of ``SQA_POINTS`` points, colors
+    in [-1, 1], labels in 0..19 with ~5% unannotated (-100), a z-rotation +
+    translation as axis alignment; 16 records on each of the two train
+    scenes, 16 on the val scene, yaw-only situation poses; 706 answers.
+    Returns the ``data.*`` overrides."""
+    rng = np.random.RandomState(SEED + 60)
+    rooms = make_detection_arrays(3, SQA_POINTS, rng)["point_clouds"]
+    answers = [f"answer{k}" for k in range(706)]
+    scenes, records = {}, {"train": [], "val": []}
+    for i, split in enumerate(("train", "train", "val")):
+        sid = f"scene{i:04d}_00"
+        labels = rng.randint(0, 20, SQA_POINTS).astype(np.int64)
+        labels[rng.rand(SQA_POINTS) < 0.05] = -100
+        aa = np.eye(4)
+        a = 0.3 + 0.7 * i
+        aa[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        aa[:3, 3] = [1.5, -2.0, 0.05]
+        scenes[sid] = {"split": split, "labels": labels, "axis_align": aa,
+                       "locs": (rooms[i] - np.array([4.0, 3.0, 1.5], np.float32)),
+                       "feats": rng.uniform(-1, 1, (SQA_POINTS, 3)).astype(np.float32)}
+        for k in range(16):
+            yaw = rng.rand() * 2 * np.pi
+            records[split].append({
+                "scene_id": sid, "question_id": 1000 * i + k,
+                "situation": _SITUATIONS[k % len(_SITUATIONS)],
+                "question": _QUESTIONS[k % len(_QUESTIONS)],
+                "answers": [answers[rng.randint(0, 40)]],
+                "position": [*(rng.rand(3) - 0.5) * [5.0, 3.5, 0.0],
+                             0.0, 0.0, np.sin(yaw / 2), np.cos(yaw / 2)]})
+    counter = {a: 1000 - k for k, a in enumerate(answers)}
+    return write_sqa3d_files(root, scenes, records, counter)
+
+
+class ForwardLaunches:
+    """While active, records the kernel launches (and, for a
+    ``final_result`` model, the host-clocked ms) of every ``SIG3D.forward``;
+    the counters are read, never reset, so an enclosing count still holds."""
+
+    def __enter__(self):
+        self.calls, self._orig = [], SIG3D.forward
+        orig = self._orig
+
+        def forward(model, batch, *args, **kwargs):
+            whole = model.cfg.sparse.final_result
+            before = read_counts()
+            if whole:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = orig(model, batch, *args, **kwargs)
+            rec = {k: v - before[k] for k, v in read_counts().items()}
+            rec.update(train=bool(kwargs.get("train", False)), final_result=whole,
+                       host_plan="plan" in batch)
+            if whole:
+                torch.cuda.synchronize()
+                rec["ms"] = (time.perf_counter() - t0) * 1e3
+            self.calls.append(rec)
+            return out
+
+        SIG3D.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        SIG3D.forward = self._orig
+
+
+def _check_forward_launches(calls, where, total=None, dx_per_step=0):
+    """Every forward: 21 convs (41 with the whole UNet) and, with a device
+    plan, 3 + 1 + 1 map kernels; none with a host plan. ``total``: the
+    counts around all of them, the training forwards' backward adding
+    ``dx_per_step`` conv launches each (20 with the encoder trained)."""
+    if not calls:
+        fail(f"sqa3d {where}: no SIG3D forward ran")
+    if total is not None:
+        want = sum(c["fused_sparse_conv"] + dx_per_step * c["train"] for c in calls)
+        if total["fused_sparse_conv"] != want:
+            fail(f"sqa3d {where}: {total['fused_sparse_conv']} conv launches, expected {want}")
+    for c in calls:
+        maps = 0 if c["host_plan"] else 1
+        want = {"fused_sparse_conv": 41 if c["final_result"] else 21,
+                "k3_map_lookup": 3 * maps, "k3_map_lookup_bits": maps, "k5_map_lookup": maps}
+        got = {k: c[k] for k in want}
+        if got != want:
+            fail(f"sqa3d {where}: kernel launches of one forward {got} != {want}")
+
+
+def _expect_launches(counts, forwards, what):
+    """``forwards`` forwards on host plans: 21 convs each and no map kernel."""
+    want = {"fused_sparse_conv": 21 * forwards, "k3_map_lookup": 0,
+            "k3_map_lookup_bits": 0, "k5_map_lookup": 0}
+    if {k: counts[k] for k in want} != want:
+        fail(f"sqa3d: {what} launched {counts}, expected {want}")
+
+
+def _by_coordinate(sv: SparseVoxels, b: int):
+    m = sv.mask[b].cpu().numpy()
+    c = sv.coords[b].cpu().numpy()[m].astype(np.int64)
+    order = np.argsort((c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2], kind="stable")
+    return c[order], sv.feats[b].float().cpu().numpy()[m][order]
+
+
+def _read_json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _per_step(means):
+    """Per-step values from the trainer's running means (``time/fetch`` and,
+    up to 10 steps, ``time/step`` are means over every step so far)."""
+    return [round(means[0], 4)] + [round((k + 1) * means[k] - k * means[k - 1], 4)
+                                   for k in range(1, len(means))]
+
+
+def _clean(batch):
+    return {k: v for k, v in batch.items()
+            if k not in ("question_id", "answer_cats", "voxel_labels")}
+
+
+def phase_sqa3d(work: str) -> None:
+    """``cli.train`` (4 steps) and ``cli.eval`` (plain, ``--scene-cache``,
+    ``--segmentation --visualize``) on SQA3D-layout files at full width,
+    B=8, bf16; then host plans against device plans on the same batch, a
+    forward on a host plan and 2 training steps through the prefetch
+    pipeline with host plans."""
+    import gc
+    import os
+    t_phase = time.perf_counter()
+    files = write_sqa3d_room_files(os.path.join(work, "data"))
+    opts = [*FULL_WIDTH, *files, f"train.batch_size={BATCH}", f"eval.batch_size={BATCH}",
+            "train.log_every_steps=1", "train.val_every_steps=1000",
+            f"train.ckpt_dir={work}/ckpt", f"log.log_dir={work}/logs"]
+    cfg = apply_overrides(Config(), opts)
+    cap = cfg.data.voxel_capacity
+    kept = {}
+    for sid in ("scene0000_00", "scene0001_00", "scene0002_00"):
+        scene = load_scene(cfg.data.scene_dir, cfg.data.scans_dir, sid)
+        n = len(voxelize_np(scene.points - scene.points.min(0), cfg.data.voxel_size)[0])
+        kept[sid] = {"points": len(scene.points), "voxels": n, "kept": min(n, cap)}
+    emit("sqa3d_files", capacity=cap, scenes=kept)
+
+    # ---- train through the entry point ---------------------------------
+    reset_counts()
+    with ForwardLaunches() as fw:
+        t0 = time.perf_counter()
+        final = cli_train.main(["--task", "sqa3d", "--max-steps", str(SQA_STEPS),
+                                "--device", DEV, "--output", f"{work}/run", "--options", *opts])
+        train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    info = _read_json(f"{work}/run/info.json")
+    if info["num_train"] != 32 or info["num_val"] != 16:
+        fail(f"sqa3d: info.json {info}: the files were not read")
+    with open(f"{work}/logs/metrics.jsonl") as fh:
+        rows = [json.loads(x) for x in fh]
+    steps = [r for r in rows if "loss" in r]
+    if [r["step"] for r in steps] != list(range(1, SQA_STEPS + 1)) or \
+            not all(np.isfinite(r["loss"]) for r in steps):
+        fail(f"sqa3d: training losses {[(r['step'], r.get('loss')) for r in steps]}")
+    if not os.path.exists(f"{work}/ckpt/step_{SQA_STEPS}.pt"):
+        fail("sqa3d: no checkpoint written")
+    n_train = sum(c["train"] for c in fw.calls)
+    if n_train != SQA_STEPS:
+        fail(f"sqa3d: {n_train} training forwards, expected {SQA_STEPS}")
+    _check_forward_launches(fw.calls, "train", train_counts,
+                            0 if "scene_encoder" in cfg.train.frozen_prefixes else 20)
+    emit("sqa3d_train", steps=SQA_STEPS, batch_size=BATCH, info=info,
+         losses=[r["loss"] for r in steps],
+         fetch_s=_per_step([r["time/fetch"] for r in steps]),
+         step_s=_per_step([r["time/step"] for r in steps]),
+         final_val_acc=final["answer_acc_at1"],
+         launches=train_counts, forwards=len(fw.calls), seconds=round(train_s, 3))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- evaluate the checkpoint ----------------------------------------
+    evals = {}
+    for name, flags in (("plain", []), ("scene_cache", ["--scene-cache"]),
+                        ("segmentation", ["--segmentation", "--visualize"])):
+        out = f"{work}/eval_{name}"
+        torch.cuda.reset_peak_memory_stats()
+        with ForwardLaunches() as fw:
+            res = cli_eval.main(["--task", "sqa3d", "--checkpoint", "latest", "--device", DEV,
+                                 "--output", out, "--options", *opts, *flags])
+        if res["step"] != SQA_STEPS:
+            fail(f"sqa3d eval {name}: restored step {res['step']} != {SQA_STEPS}")
+        metrics = _read_json(f"{out}/metrics.json")
+        if not all(np.isfinite(v) for v in metrics.values()) or \
+                not 0.0 <= metrics["answer_acc_at1"] <= 1.0:
+            fail(f"sqa3d eval {name}: metrics {metrics}")
+        if name != "scene_cache":
+            _check_forward_launches(fw.calls, f"eval {name}")
+        rec = {"step": res["step"], "answer_acc_at1": metrics["answer_acc_at1"],
+               "questions": res["num_questions"], "eval_seconds": round(res["eval_seconds"], 4),
+               "questions_per_s": round(res["num_questions"] / res["eval_seconds"], 3)}
+        if name == "segmentation":
+            seg = [c for c in fw.calls if c["final_result"]]
+            if not seg or not 0.0 <= metrics["seg_mIoU"] <= 1.0:
+                fail(f"sqa3d segmentation: {len(seg)} forwards, mIoU {metrics.get('seg_mIoU')}")
+            for i in range(min(4, BATCH)):
+                for f in (f"scene{i}_points.ply", f"scene{i}_situation.obj",
+                          f"scene{i}_render.png", f"images/eval_scene{i}_{SQA_STEPS}.png"):
+                    if not os.path.getsize(f"{out}/{f}") > 0:
+                        fail(f"sqa3d --visualize: {f} missing")
+            rec.update(seg_mIoU=metrics["seg_mIoU"], seg_accuracy=metrics["seg_accuracy"],
+                       segmentation_forwards=len(seg),
+                       segmentation_launches=[c["fused_sparse_conv"] for c in seg],
+                       segmentation_forward_ms=[round(c["ms"], 3) for c in seg],
+                       peak_memory_gb=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+        evals[name] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("sqa3d_eval", **evals)
+
+    # ---- host plans against device plans --------------------------------
+    if not native.ensure_built():
+        fail("sqa3d: the host library (native/voxelhash.cpp) did not build")
+    counter = load_answer_counter(cfg.data.answer_counter)
+    vocab = build_answer_vocab(counter, cfg.data.answer_min_freq, cfg.data.num_answers)
+    train_ds = SQA3DDataset(cfg, "train", vocab, counter)
+    batch = _clean(next(batch_iterator(train_ds, BATCH, shuffle=False)))
+    caps, extent = cfg.sparse.capacities, tuple(cfg.sparse.grid_extent)
+    coords_d = torch.as_tensor(batch["voxel_coords"], device=DEV)
+    mask_d = torch.as_tensor(batch["voxel_mask"], device=DEV)
+    host_ms, dev_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hplan = build_host_plan(batch["voxel_coords"], batch["voxel_mask"], caps)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dplan = build_unet_plan(coords_d, mask_d, caps, extent, device=DEV)
+        torch.cuda.synchronize()
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+    compared, problems = compare_with_device_plan(hplan, dplan)
+    if problems:
+        fail(f"sqa3d host plan vs device plan: {problems[:5]}")
+    # a thinned copy of the batch (its first SQA_THIN voxels a sample): no
+    # level overflows, so every level is compared and the bottlenecks match
+    thin_mask = batch["voxel_mask"] & (np.arange(cap) < SQA_THIN)[None]
+    thin_host = build_host_plan(batch["voxel_coords"], thin_mask, caps)
+    thin_dev = build_unet_plan(coords_d, torch.as_tensor(thin_mask, device=DEV), caps,
+                               extent, device=DEV)
+    thin_compared, problems = compare_with_device_plan(thin_host, thin_dev)
+    if problems or thin_compared != list(range(len(caps))):
+        fail(f"sqa3d thinned batch: levels {thin_compared} compared, {problems[:5]}")
+
+    model = SIG3D(cfg, cfg.data.num_answers, dtype=torch.bfloat16, device=DEV)
+    init_random_weights(model, SEED + 61)
+    draws = make_sample_draws(BATCH, caps[-1], cfg.model.num_scene_tokens,
+                              torch.Generator().manual_seed(SEED + 62), DEV)
+    with torch.inference_mode():
+        reset_counts()
+        out_h = model({**batch, "plan": hplan}, sample_draws=draws)
+        torch.cuda.synchronize()
+        counts_h = read_counts()
+        _expect_launches(counts_h, 1, "a forward on a host plan")
+        if not bool(torch.isfinite(out_h["answer_scores"]).all()):
+            fail("sqa3d: answers on a host plan are not finite")
+        x = SparseVoxels(coords_d.to(torch.int32),
+                         torch.as_tensor(batch["voxel_feats"], device=DEV).to(torch.bfloat16),
+                         torch.as_tensor(thin_mask, device=DEV), 1)
+        bott_h = model.scene_encoder(x, tree_to_device(thin_host, DEV),
+                                     bottleneck_only=True)["feat_bottleneck"]
+        bott_d = model.scene_encoder(x, thin_dev, bottleneck_only=True)["feat_bottleneck"]
+    worst, bit_equal, scale = 0.0, True, 0.0
+    for b in range(BATCH):
+        (ch, fh), (cd, fd) = _by_coordinate(bott_h, b), _by_coordinate(bott_d, b)
+        if not np.array_equal(ch, cd):
+            fail(f"sqa3d: bottleneck coordinates differ in sample {b}")
+        scale = max(scale, float(np.abs(fd).max()))
+        worst = max(worst, float(np.abs(fh - fd).max()))
+        bit_equal &= bool(np.array_equal(fh, fd))
+    if not worst <= FEAT_RTOL * max(scale, 1e-6):
+        fail(f"sqa3d: feat_bottleneck host plan vs device plan max abs err {worst} > "
+             f"{FEAT_RTOL} x {scale}")
+
+    # ---- 2 training steps through the prefetch pipeline with host plans --
+    tcfg = apply_overrides(cfg, [f"train.ckpt_dir={work}/ckpt_pipeline"])
+    trainer = Trainer(tcfg, model, steps_per_epoch=4)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit((_clean(b) for b in make_train_pipeline(train_ds, BATCH, caps, seed=SEED,
+                                                        epochs=1)), max_steps=2)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    counts_p = read_counts()
+    if trainer.state.step != 2:
+        fail(f"sqa3d pipeline: {trainer.state.step} steps, expected 2")
+    _expect_launches(counts_p, 2, "2 frozen training steps on host plans")
+    emit("sqa3d_host_plan", native_built=True,
+         levels_compared=compared, thinned_levels_compared=thin_compared,
+         thinned_voxels_per_sample=int(thin_mask.sum(1).max()),
+         overflow_host=hplan["overflow"]["voxels_dropped"].tolist(),
+         overflow_device=dplan["overflow"]["voxels_dropped"].tolist(),
+         host_plan_ms=[round(t, 3) for t in host_ms],
+         device_plan_ms_host_clocked=[round(t, 3) for t in dev_ms],
+         forward_on_host_plan_launches=counts_h,
+         feat_bottleneck_max_abs_err=worst, feat_bottleneck_max_abs=scale,
+         feat_bottleneck_rtol=FEAT_RTOL, feat_bottleneck_bit_equal=bit_equal,
+         pipeline_steps=2, pipeline_launches=counts_p, pipeline_seconds=round(pipe_s, 3),
+         phase_seconds=round(time.perf_counter() - t_phase, 2))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
-                    "device,kernels,forward,train,serving,minkunet,detection,reference")
+                    "device,kernels,forward,train,serving,minkunet,detection,sqa3d,"
+                    "reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1577,8 +1912,9 @@ def main() -> int:
         return 1
     phases = [p for p in args.only.split(",") if p] or \
         ["device", "kernels", "forward", "train", "serving", "minkunet", "detection",
-         "reference"]
+         "sqa3d", "reference"]
     full_run = not args.only
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
 
     info = phase_device()
@@ -1599,6 +1935,10 @@ def main() -> int:
         unet_counts = phase_minkunet(cfg, batch)
     if "detection" in phases:
         det_counts = phase_detection()
+    if "sqa3d" in phases:
+        import tempfile
+        with tempfile.TemporaryDirectory() as work:
+            phase_sqa3d(work)
     if "reference" in phases:
         phase_reference()
         phase_reference_detection()
@@ -1657,6 +1997,7 @@ def main() -> int:
             k["backward_dx_bound_ms"] = records["conv_backward"]["dx_bound_ms"]
             k["backward_dx_launches"] = train_counts[name] - counts[name]
         kernels.append(k)
+    emit("run", seconds=round(time.perf_counter() - t_run, 1))
     print(info["card"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Configuration tree of the port: its own copy of the groups the ported
 slice reads from ``situation3d_tpu/config.py`` (``DataConfig``,
 ``SparseConfig``, ``ModelConfig``, ``LangConfig``, ``LossConfig``,
-``TrainConfig``, ``LogConfig``, ``Config``) with the same
+``TrainConfig``, ``LogConfig``, ``EvalConfig``, ``Config``) with the same
 field names and defaults, so one YAML file or one list of dot-key overrides
 configures both packages.
 
@@ -185,6 +185,17 @@ class LogConfig:
 
 
 @dataclass
+class EvalConfig:
+    batch_size: int = 32
+    split: str = "val"
+    pos_thresholds: Tuple[float, ...] = (0.5, 1.0)     # meters
+    rot_thresholds: Tuple[float, ...] = (15.0, 30.0)   # degrees
+    num_beams: int = 1                 # beam=1 forced (blip2_t5.py:320)
+    max_gen_len: int = 10
+    output_dir: str = "outputs/eval"
+
+
+@dataclass
 class Config:
     """Root config (the groups the ported slices read)."""
     data: DataConfig = field(default_factory=DataConfig)
@@ -194,6 +205,7 @@ class Config:
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     log: LogConfig = field(default_factory=LogConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +308,7 @@ def apply_overrides(cfg: Config, options: List[str]) -> Config:
 def load_config(path: Optional[str] = None, options: Optional[List[str]] = None) -> Config:
     """Load a Config from a YAML file (optional) plus dot-key overrides.
     Groups of the reference's tree that the port does not have yet (mesh,
-    blip2, eval) are skipped."""
+    blip2) are skipped."""
     cfg = Config()
     if path:
         import yaml  # only needed to read a file

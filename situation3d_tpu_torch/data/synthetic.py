@@ -1,5 +1,13 @@
-"""Synthetic batches for smoke runs and tests, made with numpy from the
-caller's ``RandomState`` and moved to ``device``.
+"""Synthetic data for smoke runs and tests, made with numpy from the
+caller's seed or ``RandomState``.
+
+``make_synthetic_dataset`` (port of ``situation3d_tpu/data/synthetic.py``):
+random room-like scenes and QA records with the schema of the real pipeline,
+served by ``data/sqa3d.py:SQA3DDataset`` exactly as files would be; the
+training CLI's ``--synthetic``.
+
+``write_sqa3d_files``: scenes and QA records written in the file layout the
+SQA3D pipeline reads, for runs of the entry points on files.
 
 ``make_detection_batch``: a room of points on a floor, four walls and the
 faces of a few axis-aligned boxes, with the labels the detection loss and the
@@ -13,12 +21,112 @@ draws, in the same order, as the reference benchmark's batch; the training
 targets are drawn after them)."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import json
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation as R
 
+from situation3d_tpu_torch.data.sqa3d import SceneData, SQA3DDataset
+from situation3d_tpu_torch.data.vocab import AnswerVocab
 from situation3d_tpu_torch.device import resolve_device
+
+_QUESTIONS = [
+    "what is on the table", "is the chair red", "how many windows are there",
+    "can i reach the door", "which side is the bed", "if i turn left what do i see",
+    "where is the lamp", "am i facing the window", "describe the room",
+]
+_SITUATIONS = [
+    "i am standing next to the table facing the door",
+    "sitting on the sofa with the window on my left",
+    "leaning on the counter looking at the shelf",
+]
+_ANSWERS = ["table", "chair", "red", "two", "yes", "no", "left", "right",
+            "window", "door", "lamp", "bed"]
+
+
+def synthetic_scene(rng: np.random.RandomState, n_points: int = 30000,
+                    extent=(6.0, 5.0, 2.8)) -> SceneData:
+    pts = rng.rand(n_points, 3) * np.asarray(extent)
+    # bias to walls/floor so density resembles a scanned room
+    wall = rng.rand(n_points) < 0.4
+    pts[wall, 2] = np.abs(rng.randn(wall.sum()) * 0.05)
+    colors = rng.rand(n_points, 3) * 255.0
+    labels = rng.randint(0, 20, n_points).astype(np.uint8)
+    return SceneData(points=pts.astype(np.float64), colors=colors,
+                     labels=labels, bs_center=pts.mean(0),
+                     axis_align=np.eye(4))
+
+
+def synthetic_records(rng, scene_ids: List[str], per_scene: int,
+                      extent=(6.0, 5.0, 2.8)) -> List[dict]:
+    records = []
+    for sid in scene_ids:
+        for k in range(per_scene):
+            yaw = rng.rand() * 2 * np.pi
+            quat = R.from_rotvec([0, 0, yaw]).as_quat()
+            pos = list(rng.rand(3) * np.asarray(extent) * 0.5) + list(quat)
+            records.append({
+                "scene_id": sid,
+                "position": pos,
+                "question_id": f"synthetic-{sid}-{k}",
+                "situation": _SITUATIONS[k % len(_SITUATIONS)],
+                "question": _QUESTIONS[k % len(_QUESTIONS)],
+                "answers": [str(np.asarray(_ANSWERS)[rng.randint(len(_ANSWERS))])],
+            })
+    return records
+
+
+def write_sqa3d_files(root: str, scenes: Dict[str, dict],
+                      records: Dict[str, List[dict]],
+                      answer_counter: Dict[str, int]) -> List[str]:
+    """Write the layout ``data/sqa3d.py`` reads (``lib/sepdataset.py:415-456``):
+    ``{root}/scannet_3d/{split}/{scene}_vh_clean_2.pth`` holding the tuple
+    ``(locs float32 [N, 3], feats in [-1, 1] [N, 3], labels int64 [N], -100
+    unannotated)``, the ScanNet meta ``{root}/scans/{scene}/{scene}.txt``
+    with its ``axisAlignment = ...`` line, ``{root}/sqa/SQA_{split}.json`` and
+    ``{root}/sqa/answer_counter.json``. ``scenes``: scene id -> ``{"split",
+    "locs", "feats", "labels", "axis_align" [4, 4]}``; ``records``: split ->
+    QA records. Returns the ``data.*`` overrides that point a config there."""
+    sqa = os.path.join(root, "sqa")
+    os.makedirs(sqa, exist_ok=True)
+    for sid, sc in scenes.items():
+        d = os.path.join(root, "scannet_3d", sc["split"])
+        os.makedirs(d, exist_ok=True)
+        torch.save((sc["locs"], sc["feats"], sc["labels"]),
+                   os.path.join(d, f"{sid}_vh_clean_2.pth"))
+        meta = os.path.join(root, "scans", sid)
+        os.makedirs(meta, exist_ok=True)
+        with open(os.path.join(meta, f"{sid}.txt"), "w") as fh:
+            fh.write("colorHeight = 968\n")
+            fh.write("axisAlignment = " + " ".join(
+                f"{v:.6f}" for v in np.asarray(sc["axis_align"]).ravel()) + "\n")
+    for split, recs in records.items():
+        with open(os.path.join(sqa, f"SQA_{split}.json"), "w") as fh:
+            json.dump(recs, fh)
+    with open(os.path.join(sqa, "answer_counter.json"), "w") as fh:
+        json.dump(answer_counter, fh)
+    return [f"data.sqa_{split}={sqa}/SQA_{split}.json" for split in records] + [
+        f"data.answer_counter={sqa}/answer_counter.json",
+        f"data.scene_dir={root}/scannet_3d", f"data.scans_dir={root}/scans"]
+
+
+def make_synthetic_dataset(cfg, n_scenes: int = 2, per_scene: int = 4,
+                           split: str = "train", n_points: int = 30000,
+                           seed: int = 0,
+                           include_labels: bool = False) -> SQA3DDataset:
+    """``n_scenes`` scenes of ``n_points`` points and ``per_scene`` records
+    each, with the 12-answer vocabulary of ``_ANSWERS``."""
+    rng = np.random.RandomState(seed)
+    scene_ids = [f"scene{i:04d}_00" for i in range(n_scenes)]
+    scenes = {sid: synthetic_scene(rng, n_points) for sid in scene_ids}
+    records = synthetic_records(rng, scene_ids, per_scene)
+    vocab = AnswerVocab(_ANSWERS)
+    counter = {a: 5 for a in _ANSWERS}
+    return SQA3DDataset(cfg, split, vocab, counter, records=records,
+                        scenes=scenes, include_labels=include_labels)
 
 
 def make_scene_batch(cfg, B: int, rng: np.random.RandomState, device="cuda"):
@@ -57,16 +165,6 @@ def make_scene_batch(cfg, B: int, rng: np.random.RandomState, device="cuda"):
         "sample_valid": np.ones(B, bool),
     }
     return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}, coords, mask
-
-
-def synthetic_batches(cfg, B: int, steps: int, seed: int = 0, device="cuda"):
-    """``steps`` training batches: two different scene batches made from
-    ``seed`` and cycled (making a full-width batch on the host takes longer
-    than a step on the card)."""
-    pool = [make_scene_batch(cfg, B, np.random.RandomState(seed + i), device)[0]
-            for i in range(max(1, min(2, steps)))]
-    for i in range(steps):
-        yield pool[i % len(pool)]
 
 
 def make_detection_arrays(B: int, N: int, rng: np.random.RandomState,

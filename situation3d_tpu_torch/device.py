@@ -14,3 +14,13 @@ def resolve_device(device="cuda") -> torch.device:
             f"device={device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' explicitly to run the plain versions")
     return dev
+
+
+def tree_to_device(tree, device):
+    """Nested dicts and lists of arrays or tensors as tensors on ``device``,
+    the structure kept (a batch, or a UNet plan inside one)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_device(v, device) for v in tree]
+    return torch.as_tensor(tree).to(device)

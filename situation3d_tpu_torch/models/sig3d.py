@@ -2,7 +2,8 @@
 ``situation3d_tpu/models/sig3d.py``):
 language encoder -> sparse 3D encoder (MinkUNet18A bottleneck) -> situated
 token pooling -> MCAN SA/SGA fusion -> situation heads + AttFlat -> answer
-classifier.
+classifier. Under ``sparse.final_result`` the whole UNet runs and its 768-d
+per-voxel head comes out as ``openscene_out`` (segmentation eval).
 
 Submodule names follow the reference's parameter tree (``lang_net``,
 ``scene_encoder``, ``enc_s0``, ``dec_q1``, ``answer_cls_fc1``, ...), so
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from situation3d_tpu_torch.config import Config
-from situation3d_tpu_torch.device import resolve_device
+from situation3d_tpu_torch.device import resolve_device, tree_to_device
 from situation3d_tpu_torch.models.lang import LangModule
 from situation3d_tpu_torch.models.layers import (Dense, dropout,  # noqa: F401
                                                   init_random_weights)
@@ -109,6 +110,8 @@ class SIG3D(nn.Module):
         (or ``scene_tokens`` [B, N, C] + ``scene_token_positions`` [B, N, 2]
         from an earlier :meth:`encode_scene`)
       auxiliary_task float32 [B, 3+rot]: GT situation vector
+      plan (optional): a UNet plan built on the host
+        (``sparse/host_plan.py``); without one the plan is built on the device
 
     Values may be numpy arrays or tensors; they are moved to the model's
     device. Parameters are float32; ``dtype`` is the compute dtype.
@@ -172,40 +175,56 @@ class SIG3D(nn.Module):
             self.scene_encoder.eval()
         return self
 
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
-                if k != "plan"}
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The batch's values as tensors on the model's device; a ``plan``
+        keeps its structure."""
+        return tree_to_device(batch, self.device)
 
     # ---- vision branch ---------------------------------------------------
-    def encode_scene(self, batch: Dict[str, Any], sample_draws=None,
-                     generator: Optional[torch.Generator] = None):
-        """The scene tower alone: plan build + MinkUNet + situated pooling.
-        Returns (scene_tokens [B, N, C], positions [B, N, 2], overflow dict).
-        ``sample_draws = (sort_uniform [B, V4], dup [B, N])`` fixes the token
-        sampling; otherwise it is drawn from ``generator``."""
+    def _run_scene_encoder(self, b: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict]:
+        """MinkUNet on the batch's voxels, on ``b["plan"]`` when the batch
+        carries one (``sparse/host_plan.py``), else on a plan built here on
+        the device. The whole UNet under ``sparse.final_result``, else its
+        encoder alone. Returns (the UNet's outputs, the plan's overflow
+        counters)."""
         cfg = self.cfg
-        b = self._to_device(batch)
         x = SparseVoxels(coords=b["voxel_coords"].to(torch.int32),
                          feats=b["voxel_feats"].to(self.dtype),
                          mask=b["voxel_mask"].to(torch.bool), stride=1)
-        with torch.no_grad():                         # integer bookkeeping
-            plan = build_unet_plan(x.coords, x.mask, cfg.sparse.capacities,
-                                   cfg.sparse.grid_extent,
-                                   pallas_map=cfg.sparse.pallas_map,
-                                   pallas_map_bits=cfg.sparse.pallas_map_bits,
-                                   device=self.device)
+        plan = b.get("plan")
+        if plan is None:
+            with torch.no_grad():                     # integer bookkeeping
+                plan = build_unet_plan(x.coords, x.mask, cfg.sparse.capacities,
+                                       cfg.sparse.grid_extent,
+                                       pallas_map=cfg.sparse.pallas_map,
+                                       pallas_map_bits=cfg.sparse.pallas_map_bits,
+                                       device=self.device)
         frozen = not any(p.requires_grad for p in self.scene_encoder.parameters())
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            bott = self.scene_encoder(x, plan, bottleneck_only=True)["feat_bottleneck"]
-        N = cfg.model.num_scene_tokens
+            enc = self.scene_encoder(x, plan,
+                                     bottleneck_only=not cfg.sparse.final_result)
+        return enc, plan.get("overflow", {})
+
+    def _pool_tokens(self, bott: SparseVoxels, sample_draws, generator):
+        N = self.cfg.model.num_scene_tokens
         if sample_draws is None:
             sample_draws = make_sample_draws(bott.batch_size, bott.capacity, N,
                                              generator, self.device)
         sort_uniform, dup = (torch.as_tensor(t).to(self.device) for t in sample_draws)
-        tok_feats, positions = situated_token_pool(
-            bott.coords, bott.feats, bott.mask, bott.stride, N,
-            cfg.data.voxel_size, sort_uniform, dup)
-        return tok_feats, positions, plan["overflow"]
+        return situated_token_pool(bott.coords, bott.feats, bott.mask, bott.stride,
+                                   N, self.cfg.data.voxel_size, sort_uniform, dup)
+
+    def encode_scene(self, batch: Dict[str, Any], sample_draws=None,
+                     generator: Optional[torch.Generator] = None):
+        """The scene tower alone: plan (the batch's, or built on the device)
+        + MinkUNet + situated pooling. Returns (scene_tokens [B, N, C],
+        positions [B, N, 2], overflow dict). ``sample_draws = (sort_uniform
+        [B, V4], dup [B, N])`` fixes the token sampling; otherwise it is drawn
+        from ``generator``."""
+        enc, overflow = self._run_scene_encoder(self._to_device(batch))
+        tok_feats, positions = self._pool_tokens(enc["feat_bottleneck"],
+                                                 sample_draws, generator)
+        return tok_feats, positions, overflow
 
     def forward(self, batch: Dict[str, Any], sample_draws=None,
                 generator: Optional[torch.Generator] = None, train: bool = False,
@@ -239,10 +258,15 @@ class SIG3D(nn.Module):
             positions = b["scene_token_positions"]
             have_tokens = True
         elif not mc.no_3d:
-            tok_feats, positions, overflow = self.encode_scene(
-                b, sample_draws, generator)
+            enc, overflow = self._run_scene_encoder(b)
             for k, v in overflow.items():
                 out[f"overflow/{k}"] = v.sum()
+            if "openscene_out" in enc:
+                # per-voxel CLIP-space features for segmentation eval
+                # (eval.py:293-297: openscene_out @ text_features.T)
+                out["openscene_out"] = enc["openscene_out"].feats
+            tok_feats, positions = self._pool_tokens(enc["feat_bottleneck"],
+                                                     sample_draws, generator)
             have_tokens = True
 
         if have_tokens:

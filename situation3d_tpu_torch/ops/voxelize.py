@@ -1,17 +1,61 @@
-"""Fixed-capacity voxel dedup on the device (port of
-``situation3d_tpu/ops/voxelize.py``: ``pack_coords``, ``unpack_coords``,
-``voxelize_jax``), written with an explicit batch dimension.
+"""Voxelization (port of ``situation3d_tpu/ops/voxelize.py``).
+
+* :func:`sparse_quantize_np` / :func:`voxelize_np`: the numpy host path of
+  the data pipeline (first-occurrence dedup of integer voxel coords), a copy
+  of the reference's;
+* :func:`voxelize_torch`: fixed-capacity dedup on the device (``pack_coords``,
+  ``unpack_coords``, ``voxelize_jax``), written with an explicit batch
+  dimension.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 # per-axis coordinate bound for int32 key packing: 3 * 10 bits = 30 bits < 31.
 COORD_BITS = 10
 COORD_BOUND = 1 << COORD_BITS
 _SENTINEL = 2 ** 31 - 1
+
+
+def sparse_quantize_np(coords: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Dedup integer voxel coords.
+
+    Returns ``(first_index, inverse)``: ``first_index`` indexes the first
+    occurrence (in original order) of each unique coord, in the order of the
+    coords' lexicographic keys, and ``inverse`` maps every input row to its
+    unique id (the reference's ``sparse_quantize(..., return_index=True,
+    return_inverse=True)``).
+    """
+    coords = np.ascontiguousarray(coords.astype(np.int64))
+    mins = coords.min(axis=0)
+    shifted = coords - mins
+    spans = shifted.max(axis=0) + 1
+    key = (shifted[:, 0] * spans[1] + shifted[:, 1]) * spans[2] + shifted[:, 2]
+    order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    head = np.ones(len(key), dtype=bool)
+    head[1:] = sorted_key[1:] != sorted_key[:-1]
+    unique_id_sorted = np.cumsum(head) - 1
+    inverse = np.empty(len(key), dtype=np.int64)
+    inverse[order] = unique_id_sorted
+    first_index = order[head]
+    return first_index, inverse
+
+
+def voxelize_np(points: np.ndarray, voxel_size: float
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Quantize float points to voxel coords (scale by 1 / voxel_size, floor,
+    translate to zero minimum) and dedup, first occurrence kept.
+
+    Returns ``(voxel_coords int32 [M, 3], first_index [M], inverse [N])``.
+    """
+    coords = np.floor(points / voxel_size).astype(np.int64)
+    coords -= coords.min(axis=0)
+    first_index, inverse = sparse_quantize_np(coords)
+    return coords[first_index].astype(np.int32), first_index, inverse
 
 
 def pack_coords(coords: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,24 @@ class MetricWriter:
             for k, v in flat.items():
                 self._tb.add_scalar(k, v, step)
 
+    def write_image(self, tag: str, img, step: int) -> None:
+        """Log a rendered image (uint8 HWC), the analogue of the reference's
+        wandb image logging (``situation3d/utils/visualization.py:77-244``):
+        always a PNG file under ``log_dir/images/``, and forwarded to wandb /
+        TensorBoard when they are on."""
+        import numpy as np
+
+        from situation3d_tpu_torch.eval.visualization import write_png
+
+        img = np.asarray(img, np.uint8)
+        d = os.path.join(os.path.dirname(self._jsonl.name), "images")
+        os.makedirs(d, exist_ok=True)
+        write_png(os.path.join(d, f"{tag.replace('/', '_')}_{step}.png"), img)
+        if self._wandb is not None:
+            self._wandb.log({tag: self._wandb.Image(img)}, step=step)
+        if self._tb is not None:
+            self._tb.add_image(tag, img, step, dataformats="HWC")
+
     def close(self) -> None:
         self._jsonl.close()
         if self._wandb is not None:

@@ -25,7 +25,7 @@ def test_port_imports_nothing_of_jax():
     """Import every port module in a fresh interpreter and look at
     ``sys.modules``: no jax, flax, optax, orbax, transformers, yaml, nor the
     JAX package."""
-    assert len(PORT_MODULES) >= 38, PORT_MODULES
+    assert len(PORT_MODULES) >= 60, PORT_MODULES
     assert {"situation3d_tpu_torch.cli.train", "situation3d_tpu_torch.ops.cuda.gather_rows",
             "situation3d_tpu_torch.ops.cuda.fps", "situation3d_tpu_torch.ops.pointnet2",
             "situation3d_tpu_torch.ops.nn_distance",
@@ -35,7 +35,11 @@ def test_port_imports_nothing_of_jax():
             "situation3d_tpu_torch.eval.detection",
             "situation3d_tpu_torch.data.scannet_preprocess",
             *(f"situation3d_tpu_torch.train.{m}" for m in (
-                "checkpoint", "logging", "losses", "metrics", "optim", "trainer"))
+                "checkpoint", "logging", "losses", "metrics", "optim", "trainer", "tasks")),
+            *(f"situation3d_tpu_torch.{m}" for m in (
+                "utils.registry", "utils.misc", "utils.qa", "data.vocab", "data.tokenizer",
+                "data.sqa3d", "data.prefetch", "ops.native", "sparse.host_plan",
+                "cli.eval", "eval.segmentation", "eval.visualization"))
             } <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
@@ -46,14 +50,16 @@ def test_port_imports_nothing_of_jax():
         "'wandb', 'tensorboard', 'situation3d_tpu'))\n"
         "print('BAD=' + ','.join(bad))\n"
         "from situation3d_tpu_torch.ops.cuda import _build\n"
-        "print('BUILT=%s,%s' % (_build._lib is not None, _build.build_seconds))\n")
+        "from situation3d_tpu_torch.ops import native\n"
+        "print('BUILT=%s,%s,%s' % (_build._lib is not None, _build.build_seconds,\n"
+        "                          native._lib is not None))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          cwd=str(__import__("pathlib").Path(__file__).parents[1]))
     assert out.returncode == 0, out.stderr[-2000:]
     bad, built = out.stdout.strip().splitlines()[-2:]
     assert bad == "BAD=", bad
-    assert built == "BUILT=False,0.0", built        # importing builds nothing
+    assert built == "BUILT=False,0.0,False", built  # importing builds nothing
 
 
 def test_every_cuda_source_has_a_signature_and_a_wrapper():
@@ -86,7 +92,7 @@ def test_every_cuda_source_has_a_signature_and_a_wrapper():
 
 @pytest.mark.parametrize("group", ["DataConfig", "SparseConfig", "ModelConfig",
                                    "LangConfig", "LossConfig", "TrainConfig",
-                                   "LogConfig"])
+                                   "LogConfig", "EvalConfig"])
 def test_config_groups_match_reference(group):
     """Same field names, order and defaults as the reference's groups, so one
     set of overrides configures both packages."""
@@ -106,10 +112,11 @@ def test_apply_overrides_matches_reference_without_yaml():
             "model.situated_reencode=true", "lang.num_layers=1",
             "model.lang_model=mpnet", "sparse.fused_conv=true",
             "train.frozen_prefixes=", "train.lr_decay_steps=2,3", "train.lr=1e-3",
-            "loss.answer_loss=ce", "log.profile_steps=(2,4)", "train.nan_guard=full"]
+            "loss.answer_loss=ce", "log.profile_steps=(2,4)", "train.nan_guard=full",
+            "eval.batch_size=4", "eval.rot_thresholds=(10,20)"]
     j = jconfig.apply_overrides(jconfig.Config(), opts)
     t = tconfig.apply_overrides(tconfig.Config(), opts)
-    for g in ("data", "sparse", "model", "lang", "loss", "train", "log"):
+    for g in ("data", "sparse", "model", "lang", "loss", "train", "log", "eval"):
         assert dataclasses.asdict(getattr(j, g)) == dataclasses.asdict(getattr(t, g)), g
     with pytest.raises(KeyError):
         tconfig.apply_overrides(tconfig.Config(), ["sparse.no_such_key=1"])
@@ -158,23 +165,29 @@ def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name):
     assert ENTRY_POINTS[name]({"device": "cpu"}) is not None
 
 
-@pytest.mark.parametrize("name", ["Trainer", "cli.train"])
+@pytest.mark.parametrize("name", ["Trainer", "cli.train", "cli.eval"])
 def test_training_entry_point_defaults_to_cuda_and_raises_without_a_card(name, tmp_path):
     """The trainer runs where its model lives and the model defaults to the
-    card; the command line asks for the card unless told ``--device cpu``."""
+    card; the command lines ask for the card unless told ``--device cpu``."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
+    from situation3d_tpu_torch.cli import eval as cli_eval
     from situation3d_tpu_torch.cli import train as cli_train
     from situation3d_tpu_torch.train.trainer import Trainer
     dirs = [f"train.ckpt_dir={tmp_path / 'ckpt'}", f"log.log_dir={tmp_path / 'logs'}"]
+    # the synthetic datasets' 12 answers, voxels padded to the first capacity
+    synthetic = ["data.num_answers=12", "data.voxel_capacity=64", "eval.batch_size=4"]
 
     def run(**kw):
         if name == "Trainer":
             cfg = _tiny(dirs)
             return Trainer(cfg, ENTRY_POINTS["SIG3D"](kw), steps_per_epoch=10)
-        argv = ["--synthetic", "--max-steps", "1", "--output", str(tmp_path / "run"),
-                "--options", *_TINY, "train.batch_size=1", *dirs]
-        cli_train.main(argv + [x for k, v in kw.items() for x in (f"--{k}", v)])
+        argv = ["--synthetic", "--output", str(tmp_path / "run"),
+                "--options", *_TINY, "train.batch_size=1", *synthetic, *dirs]
+        argv += [x for k, v in kw.items() for x in (f"--{k}", v)]
+        if name == "cli.eval":
+            return cli_eval.main(argv)["num_questions"] == 8
+        cli_train.main(["--max-steps", "1", *argv])
         return (tmp_path / "ckpt" / "step_1.pt").exists()
 
     with pytest.raises(RuntimeError, match="cuda"):

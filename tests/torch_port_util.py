@@ -199,3 +199,66 @@ def port_batch_stats(model):
                 node = node.setdefault(k, {})
             node[leaf] = t2n(buf)
     return out
+
+
+# ---------------------------------------------------------------------------
+# SQA3D-layout files written on the spot (the layout of
+# tests/test_sqa3d_integration.py: OpenScene .pth scenes, ScanNet meta files
+# with an axisAlignment line, SQA_{split}.json, answer_counter.json)
+# ---------------------------------------------------------------------------
+
+SQA_SCENES = {"scene0000_00": "train", "scene0001_00": "val"}
+SQA_ANSWERS = ["yes", "no", "left", "right", "two", "red", "table", "chair",
+               "one", "three", "behind", "kitchen"]
+
+
+def write_small_sqa3d(root, n_points=4000, n_train=8, n_val=4):
+    """Two small scenes (uniform points in a 3 x 2.5 x 2 m box, 7 points
+    unannotated, an axis alignment of z-rotation + translation each), QA
+    records over both and a 12-answer counter. Returns the ``data.*``
+    overrides that point a config at them."""
+    from scipy.spatial.transform import Rotation as R
+    from situation3d_tpu_torch.data.synthetic import write_sqa3d_files
+    scenes = {}
+    for i, (sid, split) in enumerate(SQA_SCENES.items()):
+        rng = np.random.RandomState(i)
+        labels = rng.randint(0, 20, n_points).astype(np.int64)
+        labels[:7] = -100
+        aa = np.eye(4)
+        aa[:3, :3] = R.from_euler("z", 0.2 + 0.3 * i).as_matrix()
+        aa[:3, 3] = [0.5, -0.25, 0.1]
+        scenes[sid] = {"split": split, "labels": labels, "axis_align": aa,
+                       "locs": (rng.rand(n_points, 3) * np.array([3.0, 2.5, 2.0])
+                                - 1.0).astype(np.float32),
+                       "feats": (rng.rand(n_points, 3) * 2 - 1).astype(np.float32)}
+    rng = np.random.RandomState(7)
+
+    def records(n, base_qid):
+        out = []
+        for i in range(n):
+            quat = rng.randn(4)
+            quat /= np.linalg.norm(quat)
+            out.append({
+                "scene_id": list(SQA_SCENES)[i % len(SQA_SCENES)],
+                "situation": f"I am standing near the {SQA_ANSWERS[i % 6 + 6]}.",
+                "question": ["What is behind me?", "Is the door open?",
+                             "How many chairs are there?", "Can I sit down?"][i % 4],
+                "answers": [SQA_ANSWERS[i % len(SQA_ANSWERS)]],
+                "position": list(rng.rand(3) * 0.5) + list(quat),
+                "question_id": base_qid + i,
+            })
+        return out
+
+    counter = {a: 5 - (i % 3) for i, a in enumerate(SQA_ANSWERS)}
+    return write_sqa3d_files(str(root), scenes,
+                             {"train": records(n_train, 1000), "val": records(n_val, 2000)},
+                             counter)
+
+
+def assert_batches_equal(got, want):
+    """Two numpy batch dicts: the same keys, dtypes and values, bit for bit."""
+    assert sorted(got) == sorted(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.dtype == w.dtype and g.shape == w.shape, (k, g.dtype, w.dtype, g.shape, w.shape)
+        np.testing.assert_array_equal(g, w, err_msg=k)
