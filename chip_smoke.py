@@ -8,10 +8,13 @@ encoder frozen, and trained too: the UNet's decoder then moves by weight
 decay alone), the scene-cache serving form, the whole MinkUNet with its
 decoder and 768-d head (``sparse.final_result``), the full-width VoteNet
 detection path (forward, boxes and mAP, detection loss and its gradients),
-and SIG3D trained and evaluated from SQA3D-layout files written on the spot
+SIG3D trained and evaluated from SQA3D-layout files written on the spot
 through ``cli.train`` / ``cli.eval`` (plain, scene cache, segmentation,
-visualization), with host-built UNet plans held against the device's —
-and checks what comes out.
+visualization) / ``cli.infer``, with host-built UNet plans held against the
+device's, and the 3D-LLM (BLIP-2 Q-Former + FlanT5-XL, full width: three
+frozen-T5 training steps, greedy and beam decoding, then ``cli.train`` /
+``cli.eval`` / ``cli.infer`` / ``cli.score`` on 3D-VQA files and a small
+float32 model held against the CPU) — and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA device, ``nvcc`` and no network. Exits non-zero when any phase
@@ -21,7 +24,8 @@ JSON line per phase, the card's name and power limit, one JSON object
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--only device,kernels`` runs a subset of the phases (a first check of a
-changed kernel); the contract lines are printed only by a full run. The
+changed kernel; ``--only blip2`` the 3D-LLM alone); the contract lines are
+printed only by a full run. The
 ``kernels`` phase holds ``fused_sparse_conv`` to its plain version at every
 conv class of the encoder (the SIG3D forward's total), of the decoder and of
 a surface-like scene (the floor and walls of a room voxelized into the
@@ -60,17 +64,21 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from situation3d_tpu_torch.cli import eval as cli_eval
+from situation3d_tpu_torch.cli import infer as cli_infer
+from situation3d_tpu_torch.cli import score as cli_score
 from situation3d_tpu_torch.cli import train as cli_train
 from situation3d_tpu_torch.config import Config, apply_overrides
 from situation3d_tpu_torch.data.prefetch import make_train_pipeline
 from situation3d_tpu_torch.data.scannet_preprocess import ScannetDatasetConfig
 from situation3d_tpu_torch.data.sqa3d import SQA3DDataset, batch_iterator, load_scene
+from situation3d_tpu_torch.data.threedvqa import question_id_int
 from situation3d_tpu_torch.data.synthetic import (make_detection_arrays,
                                                   make_detection_batch,
                                                   make_scene_batch, write_sqa3d_files)
@@ -80,6 +88,7 @@ from situation3d_tpu_torch.eval.detection import (APCalculator,
                                                   parse_groundtruths,
                                                   parse_predictions)
 from situation3d_tpu_torch.eval.serving import SceneCache
+from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, generate, predict_answers
 from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
                                                 make_sample_draws)
 from situation3d_tpu_torch.models.votenet import VoteNet
@@ -93,6 +102,9 @@ from situation3d_tpu_torch.sparse.kernel_map import build_level_grid, kernel_off
 from situation3d_tpu_torch.sparse.minkunet import (DECODER, STRIDES, MinkUNet,
                                                    build_unet_plan)
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
+from situation3d_tpu_torch.tools.profile_forward import blip2_bench_batch
+from situation3d_tpu_torch.train.blip2_trainer import (Blip2TrainState, blip2_train_step,
+                                                      make_blip2_optimizer)
 from situation3d_tpu_torch.train.detection_losses import get_detection_loss
 from situation3d_tpu_torch.train.losses import get_loss
 from situation3d_tpu_torch.train.trainer import Trainer, create_train_state, train_step
@@ -1806,6 +1818,16 @@ def phase_sqa3d(work: str) -> None:
         evals[name] = rec
         gc.collect()
         torch.cuda.empty_cache()
+    # ---- one question through cli.infer from the same checkpoint --------
+    answer = cli_infer.main(["--task", "sqa3d", "--scene", "scene0002_00",
+                             "--question", _QUESTIONS[0], "--checkpoint", f"{work}/ckpt",
+                             "--answer-vocab", f"{work}/run/answer_vocab.json",
+                             "--device", DEV, "--options", *opts])
+    if answer not in _read_json(f"{work}/run/answer_vocab.json"):
+        fail(f"sqa3d cli.infer: answer {answer!r} is not in the run's vocabulary")
+    evals["infer"] = {"scene": "scene0002_00", "answer": answer}
+    gc.collect()
+    torch.cuda.empty_cache()
     emit("sqa3d_eval", **evals)
 
     # ---- host plans against device plans --------------------------------
@@ -1899,11 +1921,292 @@ def phase_sqa3d(work: str) -> None:
          phase_seconds=round(time.perf_counter() - t_phase, 2))
 
 
+# ---------------------------------------------------------------------------
+# The 3D-LLM (BLIP-2 Q-Former + FlanT5-XL) at full width
+# ---------------------------------------------------------------------------
+
+B2_DECODE_BATCH = 8    # bench.py blip2_decode: B=8, 5,120 scene tokens, prompt 64, 10 tokens
+B2_TRAIN_BATCH = 4     # bench.py blip2_train: B=4, prompt 64, answers 8
+B2_PROMPT, B2_ANSWER, B2_GEN, B2_BEAMS = 64, 8, 10, 5
+B2_STEPS = 3
+B2_POINTS = 6000       # points a scene in the files: above the 5,120 capacity
+B2_WIDTH: list = []    # default widths (flan-t5-xl, 12-layer Q-Former); a rehearsal shrinks them
+B2_SMALL = ["blip2.t5.vocab_size=128", "blip2.t5.d_model=64", "blip2.t5.d_kv=16",
+            "blip2.t5.d_ff=128", "blip2.t5.num_layers=2", "blip2.t5.num_decoder_layers=2",
+            "blip2.t5.num_heads=4", "blip2.t5.max_answer_len=8",
+            "blip2.qformer.num_query_tokens=4", "blip2.qformer.hidden_size=64",
+            "blip2.qformer.num_layers=2", "blip2.qformer.num_heads=4",
+            "blip2.qformer.intermediate_size=128", "blip2.qformer.encoder_width=48",
+            "blip2.qformer.scene_token_capacity=64", "blip2.pc_feat_dim=48",
+            "blip2.max_txt_len=16"]
+
+
+def _steps_run(tokens: torch.Tensor, eos: int, max_len: int) -> int:
+    """Decode steps the greedy loop ran: until every row had emitted EOS."""
+    t = tokens.cpu().numpy()
+    first = [int(np.argmax(r == eos)) + 1 if (r == eos).any() else max_len for r in t]
+    return max(first)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def blip2_train_and_decode(cfg) -> dict:
+    """Three frozen-T5 training steps at B=4 and greedy decoding of 10
+    tokens at B=8 (beam search with 5 beams beside it) on the full-width
+    Blip2T5, bf16 compute, float32 parameters."""
+    import gc
+    bcfg, t5c = cfg.blip2, cfg.blip2.t5
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = _timed(lambda: Blip2T5(bcfg, dtype=torch.bfloat16, device=DEV, seed=SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt, _ = make_blip2_optimizer(cfg, model, steps_per_epoch=100)
+    state = Blip2TrainState(model, opt, 0)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    n_train = sum(p.numel() for n, p in model.named_parameters() if n in trainable)
+    n_frozen = sum(1 for n, _ in model.named_parameters() if n not in trainable)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = tree_to_device(blip2_bench_batch(bcfg, B2_TRAIN_BATCH,
+                                             np.random.RandomState(SEED + 70), B2_PROMPT,
+                                             B2_ANSWER), DEV)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(B2_STEPS):
+        m, s = _timed(lambda: blip2_train_step(cfg, state, batch))
+        losses.append(float(m["loss"]))
+        step_s.append(s)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        fail(f"blip2 train: losses {losses}")
+    still, frozen_bad = [], []
+    for n, p in model.named_parameters():
+        if n in trainable:
+            if torch.equal(p, before[n]):
+                still.append(n)
+        elif p.grad is not None or not torch.equal(p, before[n]):
+            frozen_bad.append(n)
+    if still or frozen_bad:
+        fail(f"blip2 train: trainable tensors that did not move {still}; frozen tensors "
+             f"with a .grad or changed {frozen_bad}")
+    del before, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("blip2_train", batch_size=B2_TRAIN_BATCH, prompt=B2_PROMPT, answer=B2_ANSWER,
+         params=n_params, trainable_params=n_train, trainable_tensors=len(trainable),
+         frozen_tensors_checked=n_frozen,
+         build_s=round(build_s, 3), losses=losses, step_s=[round(s, 4) for s in step_s],
+         samples_per_s=round(B2_TRAIN_BATCH * (B2_STEPS - 1) / sum(step_s[1:]), 3),
+         peak_memory_gb=round(train_peak, 2))
+
+    model.eval()
+    dbatch = tree_to_device(blip2_bench_batch(bcfg, B2_DECODE_BATCH,
+                                              np.random.RandomState(SEED + 71), B2_PROMPT,
+                                              labels=False), DEV)
+    with torch.inference_mode():
+        # layers: the scene encoder, the T5 encoder, one decode step (CUDA events)
+        b = model._to_device(dbatch)
+        scene_ms = time_cuda(lambda: model.encode_scene(b["pc_feat"], b["pc"], b["pc_mask"]))
+        emb, emask = model.prepare(dbatch)
+        enc_ms = time_cuda(lambda: model.t5.encode(emb, emask))
+        enc = model.t5.encode(emb, emask)
+        tok = torch.zeros(B2_DECODE_BATCH, 1, dtype=torch.long, device=DEV)
+        cache = model.t5.init_cache(B2_DECODE_BATCH)
+
+        def one_step():
+            cache.index = 0
+            return model.t5.decode_step(enc, emask, tok, cache)
+        step_ms = time_cuda(one_step)
+        torch.cuda.reset_peak_memory_stats()
+        predict_answers(model, dbatch, B2_GEN)                          # warm-up
+        tokens, greedy_s = _timed(lambda: predict_answers(model, dbatch, B2_GEN))
+        steps = _steps_run(tokens, t5c.eos_token_id, B2_GEN)
+        beams, beam_s = _timed(lambda: generate(model, dbatch, num_beams=B2_BEAMS,
+                                                max_length=B2_GEN))
+        decode_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec = {"batch_size": B2_DECODE_BATCH, "scene_tokens": bcfg.qformer.scene_token_capacity,
+               "prompt": B2_PROMPT, "max_len": B2_GEN, "greedy_steps_run": steps,
+               "greedy_s": round(greedy_s, 4),
+               "tokens_per_s": round(B2_DECODE_BATCH * steps / greedy_s, 2),
+               "answers_per_s": round(B2_DECODE_BATCH / greedy_s, 3),
+               "beam_search_s": round(beam_s, 4), "beams": B2_BEAMS,
+               "scene_encoder_ms": round(scene_ms, 3), "t5_encoder_ms": round(enc_ms, 3),
+               "decode_step_ms": round(step_ms, 3), "peak_memory_gb": round(decode_peak, 2)}
+        if tokens.shape != (B2_DECODE_BATCH, B2_GEN) or beams.shape != (B2_DECODE_BATCH, B2_GEN):
+            fail(f"blip2 decode: shapes {tuple(tokens.shape)}, {tuple(beams.shape)}")
+        if steps < B2_GEN:
+            # all-zero weights never emit EOS (every logit 0, argmax the pad
+            # token): the full 10 steps, as bench.py times them
+            for p in model.t5.parameters():
+                p.zero_()
+            predict_answers(model, dbatch, B2_GEN)
+            tokens, full_s = _timed(lambda: predict_answers(model, dbatch, B2_GEN))
+            rec.update(full_steps=_steps_run(tokens, t5c.eos_token_id, B2_GEN),
+                       full_greedy_s=round(full_s, 4),
+                       full_tokens_per_s=round(B2_DECODE_BATCH * B2_GEN / full_s, 2),
+                       full_answers_per_s=round(B2_DECODE_BATCH / full_s, 3))
+    emit("blip2_decode", **rec)
+    del model, enc, emb, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def write_3dvqa_files(root: str, feat_dim: int) -> tuple:
+    """3 scenes of ``B2_POINTS`` points (``feat_dim`` float32 ``.pt`` features,
+    int32 ``.npy`` voxel coords), 4 questions a scene with 1-2 answers, and
+    the dataset config naming them (JSON, which YAML reads too). Returns
+    (dataset config path, records path, scene 0's files)."""
+    import os
+    rng = np.random.RandomState(SEED + 72)
+    feats = os.path.join(root, "features")
+    os.makedirs(feats, exist_ok=True)
+    records = []
+    for s in range(3):
+        sid = f"scene{s:04d}_00"
+        torch.save(torch.from_numpy(rng.randn(B2_POINTS, feat_dim).astype(np.float32)),
+                   os.path.join(feats, f"{sid}.pt"))
+        np.save(os.path.join(feats, f"{sid}.npy"),
+                rng.randint(0, 256, (B2_POINTS, 3)).astype(np.int32))
+        for k in range(4):
+            records.append({"scene_id": sid, "question_id": f"{sid}-q{k}",
+                            "question": _QUESTIONS[(s + k) % len(_QUESTIONS)],
+                            "answers": ["chair", "the chair", "table"][: 1 + (s + k) % 2]})
+    rec_path = os.path.join(root, "records.json")
+    with open(rec_path, "w") as fh:
+        json.dump(records, fh)
+    ds_cfg = os.path.join(root, "3dvqa.yaml")
+    with open(ds_cfg, "w") as fh:
+        json.dump({"datasets": {"3d_vqa": {"data_type": "features", "build_info": {
+            "annotations": {"train": {"storage": [rec_path]}, "val": {"storage": [rec_path]}},
+            "features": {"storage": feats}}}}}, fh, indent=2)
+    return ds_cfg, rec_path, (os.path.join(feats, "scene0000_00.pt"),
+                              os.path.join(feats, "scene0000_00.npy"))
+
+
+def blip2_entry_points(work: str) -> dict:
+    """``cli.train --task 3d_vqa`` (3 steps), ``cli.eval`` from its
+    checkpoint, ``cli.infer --task 3d_vqa`` on one scene and ``cli.score``
+    on the eval's answers, from files, at full width."""
+    import gc
+    import importlib.util
+    import os
+    ds_cfg, rec_path, (pt, npy) = write_3dvqa_files(
+        os.path.join(work, "data"), apply_overrides(Config(), B2_WIDTH).blip2.pc_feat_dim)
+    reader = "yaml" if importlib.util.find_spec("yaml") else "json (no yaml installed)"
+    opts = [*B2_WIDTH, f"train.batch_size={B2_TRAIN_BATCH}", "eval.batch_size=8",
+            "train.log_every_steps=1", f"train.ckpt_dir={work}/ckpt",
+            f"log.log_dir={work}/logs"]
+    out = {"dataset_config_reader": reader}
+    torch.cuda.reset_peak_memory_stats()
+    res, train_s = _timed(lambda: cli_train.main(
+        ["--task", "3d_vqa", "--dataset-config", ds_cfg, "--max-steps", str(B2_STEPS),
+         "--device", DEV, "--output", f"{work}/run", "--options", *opts]))
+    with open(f"{work}/logs/metrics.jsonl") as fh:
+        rows = [json.loads(x) for x in fh]
+    steps = [r for r in rows if "loss" in r]
+    if res["step"] != B2_STEPS or res["num_val"] != 12 or \
+            [r["step"] for r in steps] != list(range(1, B2_STEPS + 1)) or \
+            not all(np.isfinite(r["loss"]) for r in steps):
+        fail(f"blip2 cli.train: {res}, losses {[(r['step'], r.get('loss')) for r in steps]}")
+    if not os.path.exists(f"{work}/ckpt/step_{B2_STEPS}.pt") or \
+            len(_read_json(f"{work}/run/results/vqa_result.json")) != 12:
+        fail("blip2 cli.train: no checkpoint or no results")
+    out["train"] = {"steps": B2_STEPS, "train_pairs": res["num_train_pairs"],
+                    "losses": [r["loss"] for r in steps],
+                    "fetch_s": [round(r["time/fetch"], 4) for r in steps],
+                    "step_s": [round(r["time/step"], 4) for r in steps],
+                    "final": res["final"], "seconds": round(train_s, 2),
+                    "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ev, eval_s = _timed(lambda: cli_eval.main(
+        ["--task", "3d_vqa", "--checkpoint", f"{work}/ckpt", "--dataset-config", ds_cfg,
+         "--device", DEV, "--output", f"{work}/eval", "--options", *opts]))
+    scores = _read_json(f"{work}/eval/scores.json")
+    if ev["step"] != B2_STEPS or scores["All"]["count"] != 12 or scores != ev["scores"]:
+        fail(f"blip2 cli.eval: step {ev['step']}, scores {scores}")
+    out["eval"] = {"step": ev["step"], "questions": ev["num_questions"],
+                   "EM": scores["All"]["EM"], "eval_seconds": round(ev["eval_seconds"], 3),
+                   "questions_per_s": round(ev["num_questions"] / ev["eval_seconds"], 3),
+                   "seconds": round(eval_s, 2)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    answer, infer_s = _timed(lambda: cli_infer.main(
+        ["--task", "3d_vqa", "--pc-feat", pt, "--pc", npy, "--question",
+         "What is on the table?", "--checkpoint", f"{work}/ckpt", "--device", DEV,
+         "--options", *opts]))
+    if not isinstance(answer, str):
+        fail(f"blip2 cli.infer: answer {answer!r}")
+    out["infer"] = {"answer_words": len(answer.split()), "seconds": round(infer_s, 2)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    records = _read_json(rec_path)
+    ann = [{"question_id": question_id_int(r, i), "question": r["question"],
+            "answers": r["answers"]} for i, r in enumerate(records)]
+    with open(f"{work}/golds.json", "w") as fh:
+        json.dump(ann, fh)
+    scored = cli_score.main(["--variant", "sqa3d", "--results", f"{work}/eval/vqa_result.json",
+                             "--golds", f"{work}/golds.json"])
+    if scored != scores:
+        fail("blip2 cli.score: scores differ from cli.eval's scores.json")
+    out["score"] = {"All": scored["All"]}
+    emit("blip2_entry_points", **out)
+    return out
+
+
+def blip2_reference() -> None:
+    """A small float32 Blip2T5: the card against the CPU, same weights and
+    inputs; logits within SMALL_ATOL, greedy tokens equal."""
+    cfg = apply_overrides(Config(), [*B2_SMALL, "train.bf16=false"])
+    rng = np.random.RandomState(SEED + 73)
+    bc = cfg.blip2
+    N, L, La = bc.qformer.scene_token_capacity, bc.max_txt_len, bc.t5.max_answer_len
+    batch = {"pc_feat": rng.randn(3, N, bc.pc_feat_dim).astype(np.float32),
+             "pc": rng.randint(0, 256, (3, N, 3)).astype(np.int32),
+             "pc_mask": (np.arange(N)[None] < [[64], [40], [9]]).astype(np.int32),
+             "input_ids": rng.randint(2, 128, (3, L)).astype(np.int32),
+             "input_mask": (np.arange(L)[None] < [[16], [7], [3]]).astype(np.int32),
+             "labels": rng.randint(2, 128, (3, La)).astype(np.int32),
+             "label_mask": (np.arange(La)[None] < [[8], [4], [1]]).astype(np.int32)}
+    cpu = Blip2T5(bc, device="cpu", seed=SEED + 74)
+    init_random_weights(cpu, SEED + 75, std=None)     # N(0, 1 / fan_in): O(1) logits
+    gpu = Blip2T5(bc, device=DEV)
+    gpu.load_state_dict(cpu.state_dict())
+    with torch.inference_mode():
+        want, got = cpu(batch)["logits"], gpu(batch)["logits"].cpu()
+        t_want = predict_answers(cpu, batch, La)
+        t_got = predict_answers(gpu, batch, La).cpu()
+    err = float((got - want).abs().max())
+    if not err <= SMALL_ATOL or not torch.equal(t_got, t_want):
+        fail(f"small Blip2T5: card vs CPU logits max abs err {err} (tolerance {SMALL_ATOL}), "
+             f"greedy tokens equal: {torch.equal(t_got, t_want)}")
+    emit("blip2_reference", what="small f32 Blip2T5, card vs CPU", atol=SMALL_ATOL,
+         logits_max_abs_err=err, logits_max_abs=float(want.abs().max()),
+         greedy_tokens_equal=True, tokens=t_want.tolist())
+
+
+def phase_blip2(work: str) -> None:
+    t0 = time.perf_counter()
+    cfg = apply_overrides(Config(), [*B2_WIDTH, "train.bf16=true"])
+    blip2_train_and_decode(cfg)
+    blip2_entry_points(work)
+    blip2_reference()
+    emit("blip2", seconds=round(time.perf_counter() - t0, 2))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
                     "device,kernels,forward,train,serving,minkunet,detection,sqa3d,"
-                    "reference")
+                    "blip2,reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1912,7 +2215,7 @@ def main() -> int:
         return 1
     phases = [p for p in args.only.split(",") if p] or \
         ["device", "kernels", "forward", "train", "serving", "minkunet", "detection",
-         "sqa3d", "reference"]
+         "sqa3d", "blip2", "reference"]
     full_run = not args.only
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
@@ -1936,9 +2239,11 @@ def main() -> int:
     if "detection" in phases:
         det_counts = phase_detection()
     if "sqa3d" in phases:
-        import tempfile
         with tempfile.TemporaryDirectory() as work:
             phase_sqa3d(work)
+    if "blip2" in phases:
+        with tempfile.TemporaryDirectory() as work:
+            phase_blip2(work)
     if "reference" in phases:
         phase_reference()
         phase_reference_detection()

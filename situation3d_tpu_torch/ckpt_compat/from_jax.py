@@ -2,13 +2,15 @@
 
 ``load_jax_variables(model, params, batch_stats)`` takes the reference
 model's ``params`` and ``batch_stats`` trees as nested dicts of NUMPY arrays
-(this module imports no JAX) and fills a port model (``SIG3D``, ``VoteNet``
-or any of their parts). The port's module paths equal the reference's tree
-paths, so the mapping is by module type:
+(this module imports no JAX) and fills a port model (``SIG3D``, ``VoteNet``,
+``Blip2T5`` or any of their parts). The port's module paths equal the
+reference's tree paths, so the mapping is by module type:
 
   Dense          kernel [in, out] -> weight [out, in]; bias (where it has one)
   Embed          embedding -> weight
   LayerNorm      scale -> weight; bias
+  T5LayerNorm    weight
+  QFormer        query_tokens
   MCANLayerNorm  scale; bias
   SparseConv / SparseConv1x1   kernel, layout kept; bias (where it has one)
   SparseBatchNorm, BatchNorm  params scale, bias; batch_stats mean, var
@@ -23,6 +25,8 @@ import torch
 from situation3d_tpu_torch.models.layers import (BatchNorm, Dense, Embed,
                                                   LayerNorm)
 from situation3d_tpu_torch.models.mcan import MCANLayerNorm
+from situation3d_tpu_torch.models.qformer import QFormer
+from situation3d_tpu_torch.models.t5 import T5LayerNorm
 from situation3d_tpu_torch.sparse.conv import (SparseBatchNorm, SparseConv,
                                                SparseConv1x1)
 
@@ -35,6 +39,8 @@ _RULES = {
     Embed: [("weight", "params", "embedding", False)],
     LayerNorm: [("weight", "params", "scale", False), ("bias", "params", "bias", False)],
     MCANLayerNorm: [("scale", "params", "scale", False), ("bias", "params", "bias", False)],
+    T5LayerNorm: [("weight", "params", "weight", False)],
+    QFormer: [("query_tokens", "params", "query_tokens", False)],
     SparseConv: [("kernel", "params", "kernel", False)],
     SparseConv1x1: [("kernel", "params", "kernel", False), ("bias", "params", "bias", False)],
     SparseBatchNorm: _NORM_RULES,
@@ -51,14 +57,16 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 
 def load_jax_variables(model: torch.nn.Module, params: Mapping[str, Any],
-                       batch_stats: Mapping[str, Any]) -> List[str]:
+                       batch_stats: Mapping[str, Any], partial: bool = False) -> List[str]:
     """Fill ``model`` from the reference's variable trees.
 
     Raises ``KeyError`` on a reference leaf the port needs and cannot find,
     ``ValueError`` on a shape mismatch, and ``RuntimeError`` if a port
     parameter or buffer stays unfilled. Returns the sorted list of reference
     leaves it did not use (none for the port's models), so nothing is
-    dropped silently.
+    dropped silently. ``partial=True`` lays a partial tree over the model
+    (a converted checkpoint that holds some parts): leaves the tree lacks
+    keep their values, and shapes are still checked.
     """
     trees = {"params": params, "batch_stats": batch_stats}
     used = set()
@@ -75,9 +83,14 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping[str, Any],
             node: Any = trees[coll]
             for key in path + (leaf,):
                 if not isinstance(node, Mapping) or key not in node:
+                    if partial:
+                        node = None
+                        break
                     raise KeyError(f"reference leaf {coll}/{'/'.join(path + (leaf,))} "
                                    f"is missing (needed by {mod_name}.{tensor_name})")
                 node = node[key]
+            if node is None:          # absent from a partial tree
+                continue
             value = np.array(node, dtype=np.float32)       # a writable copy
             if transpose:
                 value = np.ascontiguousarray(value.T)
@@ -91,7 +104,7 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping[str, Any],
             used.add((coll,) + path + (leaf,))
             filled.add(f"{mod_name}.{tensor_name}" if mod_name else tensor_name)
     unfilled = sorted(set(state) - filled)
-    if unfilled:
+    if unfilled and not partial:
         raise RuntimeError(f"port tensors left unfilled: {unfilled}")
     unused = [p for coll, tree in trees.items()
               for p in _leaves(tree, (coll,)) if p not in used]

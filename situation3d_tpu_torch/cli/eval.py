@@ -26,16 +26,24 @@ import time
 import numpy as np
 import torch
 
+from situation3d_tpu_torch.ckpt_compat.blip2 import convert_blip2
+from situation3d_tpu_torch.ckpt_compat.common import load_torch_state_dict
+from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
 from situation3d_tpu_torch.config import load_config
+from situation3d_tpu_torch.data.builders import build_datasets_from_yaml
 from situation3d_tpu_torch.data.sqa3d import SQA3DDataset, batch_iterator
 from situation3d_tpu_torch.data.synthetic import make_synthetic_dataset
+from situation3d_tpu_torch.data.threedvqa import eval_batches, gold_answers
 from situation3d_tpu_torch.device import resolve_device
 from situation3d_tpu_torch.eval.segmentation import (confusion_matrix,
                                                      miou_from_confusion)
 from situation3d_tpu_torch.eval.serving import SceneCache
+from situation3d_tpu_torch.eval.sqa3d_scoring import score_results
 from situation3d_tpu_torch.eval.visualization import (export_scene_visualization,
                                                       render_topdown)
 from situation3d_tpu_torch.models.sig3d import SIG3D, init_random_weights
+from situation3d_tpu_torch.train.blip2_trainer import evaluate_generation, restore_trainable
+from situation3d_tpu_torch.train.checkpoint import CheckpointManager, load_trainable_npz
 from situation3d_tpu_torch.train.logging import MetricWriter
 from situation3d_tpu_torch.train.metrics import answer_metrics
 from situation3d_tpu_torch.train.tasks import setup_task
@@ -48,8 +56,16 @@ def parse_args(argv=None):
     p.add_argument("--config", default=None)
     p.add_argument("--options", nargs="*", default=[])
     p.add_argument("--checkpoint", default=None,
-                   help="restore the latest checkpoint of train.ckpt_dir "
-                        "(the value itself is not read, as in the reference)")
+                   help="sqa3d: restore the latest checkpoint of train.ckpt_dir "
+                        "(the value itself is not read, as in the reference); "
+                        "3d_vqa: the port's checkpoint directory to restore")
+    p.add_argument("--trainable-checkpoint", default=None,
+                   help="3d_vqa: trainable-only .npz saved by the trainer")
+    p.add_argument("--torch-checkpoint", default=None,
+                   help="3d_vqa: reference-format torch .pth checkpoint "
+                        "(converted through ckpt_compat)")
+    p.add_argument("--dataset-config", default=None,
+                   help="3d_vqa: LAVIS-style dataset yaml (data/builders.py)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--split", default="val")
     p.add_argument("--output", default="outputs/eval")
@@ -171,9 +187,77 @@ def visualize(cfg, task, ds, trainer, output, logger) -> None:
     logger.info("visualizations written to %s", output)
 
 
+def restore_blip2_params(cfg, model, args, logger):
+    """Load trained Blip2T5 weights into ``model`` from the port's checkpoint
+    directory (``--checkpoint``: its latest step's trainable tensors), a
+    trainable-only ``.npz`` (``--trainable-checkpoint``) or a
+    reference-format torch checkpoint (``--torch-checkpoint``). Returns the
+    restored step where there is one."""
+    if args.checkpoint:
+        d = args.checkpoint
+        steps = CheckpointManager(d).all_steps() if os.path.isdir(d) else []
+        if not steps:
+            if os.path.isdir(d) and any(n.isdigit() for n in os.listdir(d)):
+                raise RuntimeError(
+                    f"{d} looks like an orbax checkpoint of the JAX package; the "
+                    "port reads its own checkpoints (step_<n>.pt) and has no orbax. "
+                    "Export the trainable parameters and pass --trainable-checkpoint, "
+                    "or a reference torch checkpoint with --torch-checkpoint")
+            raise FileNotFoundError(f"no checkpoint in {d}")
+        saved = CheckpointManager(d).restore(steps[-1], map_location=model.device)
+        restore_trainable(model, saved["trainable"])
+        logger.info("restored checkpoint step %d (%d tensors)", steps[-1],
+                    len(saved["trainable"]))
+        return steps[-1]
+    if args.trainable_checkpoint:
+        n = load_trainable_npz(args.trainable_checkpoint, model)
+        logger.info("merged trainable-only checkpoint %s (%d tensors)",
+                    args.trainable_checkpoint, n)
+        return None
+    if args.torch_checkpoint:
+        b = cfg.blip2
+        update = convert_blip2(load_torch_state_dict(args.torch_checkpoint),
+                               b.qformer.num_layers, b.qformer.cross_attention_freq,
+                               vocab_size=b.t5.vocab_size)
+        load_jax_variables(model, update, {}, partial=True)
+        logger.info("merged reference torch checkpoint %s", args.torch_checkpoint)
+        return None
+    logger.warning("no checkpoint given: scoring a randomly initialized model "
+                   "(pass --checkpoint/--trainable-checkpoint/--torch-checkpoint)")
+    return None
+
+
+def eval_3dllm(args, cfg, task, device, logger) -> dict:
+    """Greedy answers over the split, scored; returns ``{"step", "scores",
+    "num_questions", "eval_seconds"}`` (generation alone, host clock)."""
+    if args.dataset_config:
+        datasets = build_datasets_from_yaml(cfg, args.dataset_config)
+    else:
+        datasets = task.build_datasets()
+    ds = datasets.get(args.split, datasets["val"])
+    model = task.build_model()
+    step = restore_blip2_params(cfg, model, args, logger)
+    t0 = time.perf_counter()
+    preds = evaluate_generation(cfg, model, eval_batches(ds, cfg.eval.batch_size),
+                                ds.text.decode, output_dir=args.output)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    eval_seconds = time.perf_counter() - t0
+    golds, questions = gold_answers(ds)
+    scores = score_results({str(k): v for k, v in preds.items()},
+                           {str(k): v for k, v in golds.items()},
+                           {str(k): v for k, v in questions.items()})
+    logger.info("scores: %s", json.dumps(scores, indent=2))
+    with open(os.path.join(args.output, "scores.json"), "w") as fh:
+        json.dump(scores, fh, indent=2)
+    return {"step": step, "scores": scores, "num_questions": len(ds),
+            "eval_seconds": eval_seconds}
+
+
 def main(argv=None) -> dict:
     """Returns ``{"step": restored step, "metrics": ..., "num_questions": ...,
-    "eval_seconds": ...}`` (the QA evaluation alone, host clock)."""
+    "eval_seconds": ...}`` (the QA evaluation alone, host clock); for
+    ``3d_vqa`` ``scores`` in place of ``metrics``."""
     args = parse_args(argv)
     cfg = load_config(args.config, args.options)
     task = setup_task(args.task, cfg, synthetic=args.synthetic, device=args.device)
@@ -181,6 +265,8 @@ def main(argv=None) -> dict:
     logger = setup_logger()
     set_seed(cfg.train.seed)
     os.makedirs(args.output, exist_ok=True)
+    if args.task == "3d_vqa":
+        return eval_3dllm(args, cfg, task, device, logger)
     datasets = task.build_datasets()
     ds = datasets.get(args.split, datasets["val"])
 

@@ -1,5 +1,6 @@
-"""Training entry point (port of ``situation3d_tpu/cli/train.py``, the
-``sqa3d`` and ``multimodal_classification`` tasks: SIG3D on SQA3D files).
+"""Training entry point (port of ``situation3d_tpu/cli/train.py``): SIG3D on
+SQA3D files (``sqa3d``, ``multimodal_classification``) and the 3D-LLM
+(``3d_vqa``, ``dialogue``, ``vqa_reading_comprehension``).
 
 Usage:
   python3 -m situation3d_tpu_torch.cli.train --task sqa3d \\
@@ -8,16 +9,22 @@ Usage:
       data.scans_dir=... train.batch_size=8 --max-steps 100
   python3 -m situation3d_tpu_torch.cli.train --task sqa3d --synthetic \\
       --max-steps 5 --options data.num_answers=12 train.batch_size=8
+  python3 -m situation3d_tpu_torch.cli.train --task 3d_vqa \\
+      --dataset-config 3dvqa.yaml --max-steps 20 --options train.batch_size=4
 
-Reads ``SQA_{split}.json`` + OpenScene ``.pth`` scenes through
+SIG3D reads ``SQA_{split}.json`` + OpenScene ``.pth`` scenes through
 ``data/sqa3d.py``; without a file at ``data.sqa_train``, or with
 ``--synthetic``, it trains on ``make_synthetic_dataset`` (2 scenes x 16
-records, 12 answers), as the reference does. Writes ``config.json``,
-``answer_vocab.json`` and ``info.json`` under ``--output``, checkpoints under
+records, 12 answers), as the reference does, and writes ``answer_vocab.json``
+and ``info.json`` under ``--output``. The 3D-LLM reads the records and scene
+features a LAVIS-style dataset yaml names (``--dataset-config``, through
+``data/builders.py``), else the synthetic 3D-VQA datasets; after training it
+evaluates the best checkpoint (``results/vqa_result.json``; ``dialogue``:
+the mean loss; ``vqa_reading_comprehension``: beam search and exact match).
+Both write ``config.json`` under ``--output``, checkpoints under
 ``train.ckpt_dir`` (``--resume`` continues from the latest), metrics under
-``log.log_dir``. Runs on the card; ``--device cpu`` asks for the CPU. The
-3D-LLM tasks come with the BLIP-2 slice of the port and raise
-``NotImplementedError``.
+``log.log_dir``. Runs on the card; ``--device cpu`` asks for the CPU.
+``stage1`` waits for the stage-1 Q-Former and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,8 +33,11 @@ import json
 import os
 
 from situation3d_tpu_torch.config import load_config, save_config, to_dict
+from situation3d_tpu_torch.data.builders import build_datasets_from_yaml
 from situation3d_tpu_torch.data.sqa3d import batch_iterator
+from situation3d_tpu_torch.data.threedvqa import eval_batches, gold_answers, train_batches
 from situation3d_tpu_torch.device import resolve_device
+from situation3d_tpu_torch.train.blip2_trainer import Blip2Trainer
 from situation3d_tpu_torch.train.logging import MetricWriter
 from situation3d_tpu_torch.train.tasks import setup_task
 from situation3d_tpu_torch.utils.misc import set_seed, setup_logger
@@ -44,26 +54,20 @@ def parse_args(argv=None):
                    help="dot-key overrides, e.g. train.lr=1e-4")
     p.add_argument("--synthetic", action="store_true",
                    help="use synthetic data (hermetic smoke runs)")
+    p.add_argument("--dataset-config", default=None,
+                   help="LAVIS-style dataset yaml (datasets: <name>: build_info: "
+                        "...) resolved through the builder registry "
+                        "(data/builders.py); the 3D-LLM tasks")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--resume", action="store_true",
-                   help="resume from the latest checkpoint in train.ckpt_dir "
-                        "(model + optimizer + step + generators)")
+                   help="resume from the latest checkpoint in train.ckpt_dir")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output", default="outputs/run")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    """Train, then evaluate on the val split; returns the final metrics."""
-    args = parse_args(argv)
-    cfg = load_config(args.config, args.options)
-    task = setup_task(args.task, cfg, synthetic=args.synthetic, device=args.device)
-    device = resolve_device(args.device)
-    logger = setup_logger()
-    set_seed(cfg.train.seed)
-    os.makedirs(args.output, exist_ok=True)
-    save_config(cfg, os.path.join(args.output, "config.json"))
-
+def train_sig3d(args, cfg, task, device, logger, log_fn) -> dict:
+    """Train SIG3D, then evaluate on the val split; the final metrics."""
     datasets = task.build_datasets()
     train_ds, val_ds = datasets["train"], datasets["val"]
     if len(train_ds.vocab) != cfg.data.num_answers:
@@ -76,15 +80,6 @@ def main(argv=None) -> dict:
         json.dump({"task": args.task, "num_train": len(train_ds),
                    "num_val": len(val_ds), "num_answers": cfg.data.num_answers,
                    "device": str(device)}, fh, indent=2)
-
-    writer = MetricWriter(cfg.log.log_dir, cfg.log.use_wandb,
-                          cfg.log.use_tensorboard, cfg.log.project,
-                          config=to_dict(cfg))
-
-    def log_fn(m, s):
-        writer.write(m, s)
-        logger.info("step %d | %s", s, " ".join(
-            f"{k}={v:.4g}" for k, v in m.items() if isinstance(v, float)))
 
     bs = cfg.train.batch_size
     model = task.build_model()
@@ -108,8 +103,75 @@ def main(argv=None) -> dict:
                 val_iter_fn=lambda: val_batches(val_clean), max_steps=args.max_steps)
     metrics = trainer.evaluate(val_batches(task.clean_batch))
     logger.info("final val: %s", metrics)
-    writer.close()
     return metrics
+
+
+def train_3dllm(args, cfg, task, logger, log_fn) -> dict:
+    """Train Blip2T5 with validation, then evaluate the best checkpoint.
+    Returns ``{"step", "num_train_pairs", "num_val", "final"}``."""
+    if args.dataset_config:
+        datasets = build_datasets_from_yaml(cfg, args.dataset_config)
+    else:
+        datasets = task.build_datasets()
+    ds, val_ds = datasets["train"], datasets["val"]
+    bs = cfg.train.batch_size
+    model = task.build_model()
+    golds, _ = gold_answers(val_ds)
+    trainer = Blip2Trainer(cfg, model, steps_per_epoch=max(len(ds.train_pairs()) // bs, 1),
+                           log_fn=log_fn, text_decoder=val_ds.text.decode)
+    if args.resume and trainer.resume():
+        logger.info("resumed from step %d", trainer.state.step)
+    trainer.fit(train_batches(ds, bs, seed=cfg.train.seed, epochs=cfg.train.epochs),
+                val_iter_fn=lambda: eval_batches(val_ds, bs), golds=golds,
+                max_steps=args.max_steps)
+    if args.task == "dialogue":
+        # loss-based validation (lavis/tasks/dialogue.py:45-64) on label-bearing
+        # batches of the val split
+        final = task.after_evaluation([task.valid_step(model, b)
+                                       for b in train_batches(val_ds, bs, seed=0, epochs=1)])
+    elif args.task == "vqa_reading_comprehension":
+        results = []
+        for b in eval_batches(val_ds, bs):
+            results += task.valid_step(model, b, decode_fn=val_ds.text.decode)
+        final = task.after_evaluation(results, golds)
+    else:
+        em, preds = trainer.evaluate(eval_batches(val_ds, bs), golds)
+        logger.info("final val EM=%.4f over %d answers (best ckpt)", em, len(preds))
+        results_dir = os.path.join(args.output, "results")
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, "vqa_result.json"), "w") as fh:
+            json.dump([{"question_id": q, "answer": a} for q, a in preds.items()], fh)
+        final = {"EM": em}
+    logger.info("final val: %s", final)
+    return {"step": trainer.state.step, "num_train_pairs": len(ds.train_pairs()),
+            "num_val": len(val_ds), "final": final}
+
+
+def main(argv=None) -> dict:
+    """Train, then evaluate; returns what the task's branch returns."""
+    args = parse_args(argv)
+    cfg = load_config(args.config, args.options)
+    task = setup_task(args.task, cfg, synthetic=args.synthetic, device=args.device)
+    device = resolve_device(args.device)
+    logger = setup_logger()
+    set_seed(cfg.train.seed)
+    os.makedirs(args.output, exist_ok=True)
+    save_config(cfg, os.path.join(args.output, "config.json"))
+    writer = MetricWriter(cfg.log.log_dir, cfg.log.use_wandb,
+                          cfg.log.use_tensorboard, cfg.log.project,
+                          config=to_dict(cfg))
+
+    def log_fn(m, s):
+        writer.write(m, s)
+        logger.info("step %d | %s", s, " ".join(
+            f"{k}={v:.4g}" for k, v in m.items() if isinstance(v, float)))
+
+    try:
+        if args.task in ("sqa3d", "multimodal_classification"):
+            return train_sig3d(args, cfg, task, device, logger, log_fn)
+        return train_3dllm(args, cfg, task, logger, log_fn)
+    finally:
+        writer.close()
 
 
 if __name__ == "__main__":

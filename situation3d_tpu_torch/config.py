@@ -1,7 +1,8 @@
 """Configuration tree of the port: its own copy of the groups the ported
 slice reads from ``situation3d_tpu/config.py`` (``DataConfig``,
 ``SparseConfig``, ``ModelConfig``, ``LangConfig``, ``LossConfig``,
-``TrainConfig``, ``LogConfig``, ``EvalConfig``, ``Config``) with the same
+``TrainConfig``, ``QFormerConfig``, ``T5Config``, ``Blip2Config``,
+``LogConfig``, ``EvalConfig``, ``Config``) with the same
 field names and defaults, so one YAML file or one list of dot-key overrides
 configures both packages.
 
@@ -160,7 +161,9 @@ class TrainConfig:
     bn_momentum_decay: float = 0.5
     bn_momentum_step: int = 20
     val_every_steps: int = 1000
-    # iteration-based runs of the 3D-LLM trainer; not read by this slice
+    # iteration-based runs of the 3D-LLM trainer (RunnerIter): max_iters > 0
+    # bounds the steps, iters_per_inner_epoch > 0 sets the validation and
+    # checkpoint cadence; 0 falls back to one epoch
     max_iters: int = 0
     iters_per_inner_epoch: int = 0
     log_every_steps: int = 50
@@ -173,6 +176,57 @@ class TrainConfig:
     # "loss": skip the update when the loss is non-finite; "full": also when
     # any trainable gradient is; "off": no guard
     nan_guard: str = "loss"
+
+
+@dataclass
+class QFormerConfig:
+    """Q-Former of the 3D-LLM (BLIP-2's querying transformer)."""
+    num_query_tokens: int = 32
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    cross_attention_freq: int = 2
+    encoder_width: int = 1408          # scene-feature width
+    vocab_size: int = 30523            # stage-1 text vocabulary (not ported yet)
+    max_position: int = 512
+    layer_norm_eps: float = 1e-12
+    scene_token_capacity: int = 5120   # scene tokens a sample, padded
+
+
+@dataclass
+class T5Config:
+    """FlanT5. Defaults sized for flan-t5-xl."""
+    vocab_size: int = 65536            # 32128 + 32768 location tokens, padded
+    d_model: int = 2048
+    d_kv: int = 64
+    d_ff: int = 5120
+    num_layers: int = 24
+    num_decoder_layers: int = 24
+    num_heads: int = 32
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    dense_act_fn: str = "gelu"
+    is_gated_act: bool = True
+    pad_token_id: int = 0
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+    max_input_len: int = 480           # 32 query + <=400 prompt padded
+    max_answer_len: int = 50
+    tie_word_embeddings: bool = False
+    remat: bool = False                # recompute each block in the backward (training)
+
+
+@dataclass
+class Blip2Config:
+    qformer: QFormerConfig = field(default_factory=QFormerConfig)
+    t5: T5Config = field(default_factory=T5Config)
+    pc_feat_dim: int = 1408
+    pos_scale: float = 0.01            # 0.01 x sinusoidal xyz position encoding
+    prompt: str = "Question: {} Answer:"
+    max_txt_len: int = 400
+    freeze_t5_except_embeddings: bool = True
 
 
 @dataclass
@@ -204,6 +258,7 @@ class Config:
     lang: LangConfig = field(default_factory=LangConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    blip2: Blip2Config = field(default_factory=Blip2Config)
     log: LogConfig = field(default_factory=LogConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
@@ -307,8 +362,8 @@ def apply_overrides(cfg: Config, options: List[str]) -> Config:
 
 def load_config(path: Optional[str] = None, options: Optional[List[str]] = None) -> Config:
     """Load a Config from a YAML file (optional) plus dot-key overrides.
-    Groups of the reference's tree that the port does not have yet (mesh,
-    blip2) are skipped."""
+    The reference's ``mesh`` group (multi-device layout, not ported yet) is
+    skipped."""
     cfg = Config()
     if path:
         import yaml  # only needed to read a file

@@ -1,11 +1,19 @@
 """Where the full-width SIG3D forward, or training step, or the full-width
-VoteNet detection path, spends its time on the card.
+VoteNet detection path, or the full-width 3D-LLM, spends its time on the card.
 
 Run from the repository root on a machine with one CUDA device:
 
     python3 -m situation3d_tpu_torch.tools.profile_forward [--batch 8] [--out DIR]
     python3 -m situation3d_tpu_torch.tools.profile_forward --train frozen|unfrozen
     python3 -m situation3d_tpu_torch.tools.profile_forward --model votenet [--points 40000]
+    python3 -m situation3d_tpu_torch.tools.profile_forward --model blip2
+
+With ``--model blip2`` it times the 3D-LLM (Blip2T5 at the default widths,
+bf16 compute) at ``bench.py``'s shapes: greedy decoding of 10 tokens at
+``--batch`` (5,120 scene tokens, a 64-token prompt) split into scene
+encoder, T5 encoder and decode steps, and one frozen-T5 training step at
+B=4 split into forward + loss, backward and optimizer; it profiles one
+greedy decode and one training step.
 
 With ``--train`` it times one training step of that configuration (scene
 encoder frozen, the default, or trained too) split into forward, backward
@@ -306,6 +314,90 @@ def profile_votenet(args, card) -> dict:
     return result
 
 
+def blip2_bench_batch(bcfg, B: int, rng, prompt: int = 64, answer: int = 8,
+                      labels: bool = True) -> dict:
+    """``bench.py``'s 3D-LLM batch as numpy arrays: every scene token valid,
+    random prompts (and answers) of fixed length."""
+    N, top = bcfg.qformer.scene_token_capacity, min(32000, bcfg.t5.vocab_size)
+    b = {"pc_feat": rng.randn(B, N, bcfg.pc_feat_dim).astype(np.float32),
+         "pc": rng.randint(0, 256, (B, N, 3)).astype(np.int32),
+         "pc_mask": np.ones((B, N), np.int32),
+         "input_ids": rng.randint(2, top, (B, prompt)).astype(np.int32),
+         "input_mask": np.ones((B, prompt), np.int32)}
+    if labels:
+        b["labels"] = rng.randint(2, top, (B, answer)).astype(np.int32)
+        b["label_mask"] = np.ones((B, answer), np.int32)
+    return b
+
+
+def profile_blip2(args, card) -> dict:
+    from situation3d_tpu_torch.device import tree_to_device
+    from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, predict_answers
+    from situation3d_tpu_torch.train.blip2_trainer import (Blip2TrainState,
+                                                          blip2_train_step,
+                                                          make_blip2_optimizer)
+    cfg = Config()
+    bcfg, gen = cfg.blip2, 10
+    model = Blip2T5(bcfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    rng = np.random.RandomState(0)
+    dbatch = tree_to_device(blip2_bench_batch(bcfg, args.batch, rng, labels=False), "cuda")
+    tbatch = tree_to_device(blip2_bench_batch(bcfg, 4, rng), "cuda")
+    stages = {}
+    with torch.inference_mode():
+        stages["scene_encoder"], _ = _timed(lambda: model.encode_scene(
+            dbatch["pc_feat"], dbatch["pc"], dbatch["pc_mask"]), args.runs)
+        emb, emask = model.prepare(dbatch)
+        stages["t5_encoder"], enc = _timed(lambda: model.t5.encode(emb, emask), args.runs)
+        cache = model.t5.init_cache(args.batch)
+        tok = torch.zeros(args.batch, 1, dtype=torch.long, device="cuda")
+
+        def step():
+            cache.index = 0
+            return model.t5.decode_step(enc, emask, tok, cache)
+        stages["decode_step"], _ = _timed(step, args.runs)
+        decode = _profiled(lambda: predict_answers(model, dbatch, gen), args.runs)
+        tokens = predict_answers(model, dbatch, gen).cpu().numpy()
+    opt, _ = make_blip2_optimizer(cfg, model, 100)
+    state = Blip2TrainState(model, opt, 0)
+    for _ in range(2):
+        blip2_train_step(cfg, state, tbatch)
+    parts = {"forward_and_loss": [], "backward": [], "optimizer": []}
+    for _ in range(args.runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(tbatch)["loss"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, a, b in (("forward_and_loss", t0, t1), ("backward", t1, t2),
+                        ("optimizer", t2, t3)):
+            parts[k].append((b - a) * 1e3)
+    stages.update({k: statistics.median(v) for k, v in parts.items()})
+    train = _profiled(lambda: blip2_train_step(cfg, state, tbatch), args.runs)
+    for rec in (decode, train):
+        rec["idle_share"] = round(1.0 - rec["device_busy_ms"] / rec["host_ms"], 4)
+    steps = max(int(np.argmax(r == 1)) + 1 if (r == 1).any() else gen for r in tokens)
+    result = {
+        "card": card, "mode": "blip2", "batch": args.batch, "train_batch": 4,
+        "scene_tokens": bcfg.qformer.scene_token_capacity, "prompt": 64, "gen": gen,
+        "greedy_steps_run": steps, "stages_ms": {k: round(v, 3) for k, v in stages.items()},
+        "tokens_per_s": round(args.batch * steps / decode["host_ms"] * 1e3, 2),
+        "train_samples_per_s": round(4 / train["host_ms"] * 1e3, 3),
+        "greedy_decode": decode, "train_step": train}
+    print(json.dumps(result))
+    if args.out:
+        import os
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "profile_blip2.json"), "w") as fh:
+            json.dump(result, fh, indent=2)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
@@ -313,7 +405,7 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--train", choices=["frozen", "unfrozen"], default=None,
                     help="profile a training step instead of the forward")
-    ap.add_argument("--model", choices=["sig3d", "votenet"], default="sig3d")
+    ap.add_argument("--model", choices=["sig3d", "votenet", "blip2"], default="sig3d")
     ap.add_argument("--points", type=int, default=40000,
                     help="points a scene (--model votenet)")
     args = ap.parse_args()
@@ -324,6 +416,9 @@ def main() -> int:
         capture_output=True, text=True).stdout.strip()
     if args.model == "votenet":
         profile_votenet(args, card)
+        return 0
+    if args.model == "blip2":
+        profile_blip2(args, card)
         return 0
     cfg = apply_overrides(Config(), ["data.num_answers=706"])
     if args.train:

@@ -1,8 +1,8 @@
 """Optimizer and learning-rate schedules (port of
 ``situation3d_tpu/train/optim.py``): AdamW with the weight-decay / no-decay
 split, clip-by-value before the update, the four schedules, the trainable
-masks (frozen prefixes, the language-encoder freeze recipe) and gradient
-accumulation.
+masks (frozen prefixes, the language-encoder freeze recipe, the 3D-LLM's
+frozen T5) and gradient accumulation.
 
 Freezing is the PyTorch idiom: a frozen parameter gets
 ``requires_grad=False`` and is not handed to the optimizer, so it carries no
@@ -144,6 +144,26 @@ def sig3d_trainable_mask(cfg, params) -> Mask:
     """SIG3D's mask from the full Config: the ``model.lang_freeze`` recipe
     (the prefix filter is applied by :func:`make_optimizer` itself)."""
     return lang_freeze_trainable(params, cfg.model.lang_freeze, cfg.lang.num_layers)
+
+
+def t5_embed_only_trainable(params, module: str = "t5",
+                            keep: Tuple[str, ...] = ("shared", "lm_head")) -> Mask:
+    """T5 frozen except its input and output embeddings (``shared``,
+    ``lm_head``); everything outside ``module`` stays trainable."""
+    def fn(names):
+        if module not in names:
+            return True
+        i = names.index(module)
+        return len(names) > i + 1 and names[i + 1] in keep
+    return mask_from_predicate(params, fn)
+
+
+def blip2_trainable_mask(cfg, params) -> Mask:
+    """Blip2T5's mask from the full Config: T5 frozen but its embeddings when
+    ``blip2.freeze_t5_except_embeddings``, else everything trains."""
+    if cfg.blip2.freeze_t5_except_embeddings:
+        return t5_embed_only_trainable(params)
+    return mask_from_predicate(params, lambda names: True)
 
 
 def decay_mask(named_params) -> Mask:

@@ -1,13 +1,16 @@
-"""Task registry: datasets + model + trainer per task (port of the SIG3D part
-of ``situation3d_tpu/train/tasks.py``, the LAVIS task layer's replacement).
+"""Task registry: datasets + model + trainer per task (port of
+``situation3d_tpu/train/tasks.py``, the LAVIS task layer's replacement).
 
-Registered here: ``sqa3d`` and ``multimodal_classification``. The 3D-LLM
-tasks (``3d_vqa``, ``stage1``, ``captioning``, ``retrieval``, ``dialogue``,
-``vqa_reading_comprehension``) come with the BLIP-2 + T5 slice of the port;
-``setup_task`` raises ``NotImplementedError`` for them.
+Registered here: ``sqa3d`` and ``multimodal_classification`` (SIG3D), and
+the 3D-LLM's ``3d_vqa``, ``captioning``, ``dialogue`` and
+``vqa_reading_comprehension`` (Blip2T5). Stage-1 pretraining (``stage1``)
+and ``retrieval`` need the stage-1 Q-Former, which is not ported yet
+(Slice D2); ``setup_task`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import logging
 import os
 from typing import Any, Dict, Optional
@@ -18,13 +21,15 @@ import torch
 from situation3d_tpu_torch.config import Config
 from situation3d_tpu_torch.data.sqa3d import SQA3DDataset
 from situation3d_tpu_torch.data.synthetic import make_synthetic_dataset
+from situation3d_tpu_torch.data.threedvqa import ThreeDVQADataset, synthetic_threedvqa
 from situation3d_tpu_torch.data.vocab import build_answer_vocab, load_answer_counter
+from situation3d_tpu_torch.eval.scorers import exact_match, score_all
+from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, generate
 from situation3d_tpu_torch.models.sig3d import SIG3D, init_random_weights
 from situation3d_tpu_torch.train.trainer import Trainer
 from situation3d_tpu_torch.utils.registry import registry
 
-BLIP2_TASKS = ("3d_vqa", "stage1", "captioning", "retrieval", "dialogue",
-               "vqa_reading_comprehension")
+STAGE1_TASKS = ("stage1", "retrieval")    # need the stage-1 Q-Former (not ported yet)
 _logger = logging.getLogger("situation3d_tpu_torch")
 
 
@@ -115,9 +120,116 @@ class MultimodalClassificationTask(SQA3DTask):
         return {"agg_metrics": acc, "acc": acc}
 
 
+@registry.register_task("3d_vqa")
+class ThreeDVQATask:
+    """Generative 3D QA with Blip2T5 (the reference's 3D-LLM stack). The
+    model lives on ``device`` (the card unless the caller asks for the
+    CPU)."""
+
+    def __init__(self, cfg: Config, synthetic: bool = False, device="cuda"):
+        self.cfg = cfg
+        self.synthetic = synthetic
+        self.device = device
+
+    def build_datasets(self, records_path: Optional[str] = None,
+                       feature_dir: Optional[str] = None) -> Dict[str, Any]:
+        """Records + scene features when ``records_path`` is given (and
+        ``--synthetic`` is not), else the synthetic datasets (2 scenes x 8
+        records for train, 1 x 4 for val)."""
+        if self.synthetic or records_path is None:
+            return {"train": synthetic_threedvqa(self.cfg.blip2, 2, 8),
+                    "val": synthetic_threedvqa(self.cfg.blip2, 1, 4, seed=1)}
+        with open(records_path) as fh:
+            records = json.load(fh)
+        ds = ThreeDVQADataset(self.cfg.blip2, records, feature_dir=feature_dir)
+        return {"train": ds, "val": ds}
+
+    def build_model(self) -> Blip2T5:
+        """Blip2T5 built on the task's device with seeded random weights
+        (``train.seed``)."""
+        cfg = self.cfg
+        return Blip2T5(cfg.blip2, dtype=torch.bfloat16 if cfg.train.bf16 else torch.float32,
+                       device=self.device, seed=cfg.train.seed)
+
+
+@registry.register_task("captioning")
+class CaptionTask(ThreeDVQATask):
+    """Scene captioning with Blip2T5 (``lavis/tasks/captioning.py:17-80``):
+    generation without a question prompt, scored by BLEU / ROUGE-L / CIDEr
+    (``eval/scorers.score_all``). Caption records use the 3d_vqa schema with
+    the caption as the single answer and an empty question; the prompt
+    template collapses to ``"{}"``."""
+
+    def __init__(self, cfg: Config, synthetic: bool = False, device="cuda"):
+        cfg = dataclasses.replace(cfg, blip2=dataclasses.replace(cfg.blip2, prompt="{}"))
+        super().__init__(cfg, synthetic=synthetic, device=device)
+
+    @staticmethod
+    def report_metrics(preds: Dict[str, str], golds) -> Dict[str, float]:
+        return score_all(preds, golds)
+
+
+@registry.register_task("dialogue")
+class DialogueTask(ThreeDVQATask):
+    """Dialogue finetuning (``lavis/tasks/dialogue.py:21-64``): validation is
+    loss-based, ``valid_step`` returns the LM loss of a batch and
+    ``after_evaluation`` reports the mean as ``agg_metrics``. Dialogue turns
+    use the 3d_vqa schema: the history is the question, the reply the
+    answer."""
+
+    def valid_step(self, model: Blip2T5, batch: Dict[str, Any]) -> float:
+        model.eval()
+        with torch.inference_mode():
+            return float(model(batch)["loss"])
+
+    @staticmethod
+    def after_evaluation(losses) -> Dict[str, float]:
+        m = float(np.mean(losses)) if len(losses) else 0.0
+        return {"agg_metrics": m, "loss": m}
+
+
+@registry.register_task("vqa_reading_comprehension")
+class VQARCTask(ThreeDVQATask):
+    """Reading-comprehension VQA (``lavis/tasks/vqa_reading_comprehension.py``):
+    generation with the decoding knobs (num_beams / max_len / min_len /
+    top_p / repetition_penalty / nucleus sampling), decoded straight from
+    the scene-conditioned encoder, scored by exact match."""
+
+    def __init__(self, cfg: Config, synthetic: bool = False, device="cuda",
+                 num_beams: int = 3, max_len: int = 10, min_len: int = 1,
+                 top_p: float = 0.9, repetition_penalty: float = 1.0,
+                 use_nucleus_sampling: bool = False):
+        super().__init__(cfg, synthetic=synthetic, device=device)
+        self.num_beams = num_beams
+        self.max_len = max_len
+        self.min_len = min_len
+        self.top_p = top_p
+        self.repetition_penalty = repetition_penalty
+        self.use_nucleus_sampling = use_nucleus_sampling
+
+    def valid_step(self, model: Blip2T5, batch: Dict[str, Any], decode_fn=None,
+                   generator: Optional[torch.Generator] = None) -> list:
+        model.eval()
+        tokens = generate(model, batch, use_nucleus_sampling=self.use_nucleus_sampling,
+                          num_beams=self.num_beams, max_length=self.max_len,
+                          min_length=self.min_len, top_p=self.top_p,
+                          repetition_penalty=self.repetition_penalty,
+                          generator=generator).cpu().numpy()
+        decode = decode_fn or (lambda t: " ".join(map(str, t)))
+        qids = np.asarray(batch["question_id"]).reshape(-1)
+        return [{"question_id": str(q), "answer": decode(list(t))}
+                for q, t in zip(qids, tokens)]
+
+    @staticmethod
+    def after_evaluation(results, golds: Dict[str, list]) -> Dict[str, float]:
+        preds = {str(r["question_id"]): r["answer"] for r in results}
+        em = exact_match(preds, {str(k): v for k, v in golds.items()})
+        return {"agg_metrics": em, "EM": em}
+
+
 def setup_task(name: str, cfg: Config, **kwargs):
-    if name in BLIP2_TASKS:
+    if name in STAGE1_TASKS:
         raise NotImplementedError(
-            f"--task {name} is not ported yet: the 3D-LLM tasks come with the "
-            "BLIP-2 + T5 slice of the port")
+            f"--task {name} is not ported yet: stage-1 pretraining and retrieval "
+            "need the stage-1 Q-Former (Slice D2 of the port)")
     return registry.get_task(name)(cfg, **kwargs)

@@ -31,6 +31,7 @@ from situation3d_tpu.train import losses as jlosses
 from situation3d_tpu.train import logging as jlog
 from situation3d_tpu.train import tasks as jtasks
 from situation3d_tpu_torch.cli import eval as cli_eval
+from situation3d_tpu_torch.cli import infer as cli_infer
 from situation3d_tpu_torch.cli import train as cli_train
 from situation3d_tpu_torch.data import sqa3d as tsqa
 from situation3d_tpu_torch.data import vocab as tvocab
@@ -233,8 +234,30 @@ def test_synthetic_flag_builds_the_reference_datasets():
                                  next(jsqa.batch_iterator(want[split], 4, seed=5)))
 
 
-@pytest.mark.parametrize("name", ttasks.BLIP2_TASKS)
+@pytest.mark.parametrize("name", ["3d_vqa", "stage1", "captioning", "retrieval", "dialogue",
+                                  "vqa_reading_comprehension"])
 def test_3d_llm_tasks_name_the_blip2_slice(name):
+    """The 3D-LLM's generative tasks are ported (Blip2T5 on the task's
+    device); stage-1 pretraining and retrieval raise, naming Slice D2."""
     _, tcfg = tiny_cfgs()
-    with pytest.raises(NotImplementedError, match="BLIP-2"):
-        ttasks.setup_task(name, tcfg)
+    if name in ttasks.STAGE1_TASKS:
+        with pytest.raises(NotImplementedError, match="D2"):
+            ttasks.setup_task(name, tcfg)
+    else:
+        task = ttasks.setup_task(name, tcfg, device="cpu")
+        assert isinstance(task, ttasks.ThreeDVQATask) and task.device == "cpu"
+
+
+def test_cli_infer_sqa3d_answers_from_the_checkpoint(trained, files, capsys):
+    """``cli.infer --task sqa3d``: one scene, a situation and a question give
+    one of the run's answers from its checkpoint."""
+    tmp = trained["tmp"]
+    vocab = json.load(open(tmp / "out" / "answer_vocab.json"))
+    answer = cli_infer.main(["--task", "sqa3d", "--scene", "scene0001_00",
+                             "--question", "What is behind me?",
+                             "--checkpoint", str(tmp / "ckpt"),
+                             "--answer-vocab", str(tmp / "out" / "answer_vocab.json"),
+                             "--device", "cpu", "--options", *trained["opts"]])
+    assert answer in vocab
+    assert capsys.readouterr().out.splitlines()[-2:] == ["Q: What is behind me?",
+                                                         f"A: {answer}"]

@@ -25,7 +25,7 @@ def test_port_imports_nothing_of_jax():
     """Import every port module in a fresh interpreter and look at
     ``sys.modules``: no jax, flax, optax, orbax, transformers, yaml, nor the
     JAX package."""
-    assert len(PORT_MODULES) >= 60, PORT_MODULES
+    assert len(PORT_MODULES) >= 74, PORT_MODULES
     assert {"situation3d_tpu_torch.cli.train", "situation3d_tpu_torch.ops.cuda.gather_rows",
             "situation3d_tpu_torch.ops.cuda.fps", "situation3d_tpu_torch.ops.pointnet2",
             "situation3d_tpu_torch.ops.nn_distance",
@@ -39,7 +39,12 @@ def test_port_imports_nothing_of_jax():
             *(f"situation3d_tpu_torch.{m}" for m in (
                 "utils.registry", "utils.misc", "utils.qa", "data.vocab", "data.tokenizer",
                 "data.sqa3d", "data.prefetch", "ops.native", "sparse.host_plan",
-                "cli.eval", "eval.segmentation", "eval.visualization"))
+                "cli.eval", "eval.segmentation", "eval.visualization",
+                # the 3D-LLM
+                "models.positional", "models.qformer", "models.t5", "models.blip2_t5",
+                "ckpt_compat.common", "ckpt_compat.t5", "ckpt_compat.blip2",
+                "data.threedvqa", "data.builders", "train.blip2_trainer",
+                "eval.scorers", "eval.sqa3d_scoring", "cli.score", "cli.infer"))
             } <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
@@ -92,7 +97,8 @@ def test_every_cuda_source_has_a_signature_and_a_wrapper():
 
 @pytest.mark.parametrize("group", ["DataConfig", "SparseConfig", "ModelConfig",
                                    "LangConfig", "LossConfig", "TrainConfig",
-                                   "LogConfig", "EvalConfig"])
+                                   "LogConfig", "EvalConfig", "QFormerConfig",
+                                   "T5Config", "Blip2Config"])
 def test_config_groups_match_reference(group):
     """Same field names, order and defaults as the reference's groups, so one
     set of overrides configures both packages."""
@@ -122,6 +128,17 @@ def test_apply_overrides_matches_reference_without_yaml():
         tconfig.apply_overrides(tconfig.Config(), ["sparse.no_such_key=1"])
 
 
+def test_blip2_overrides_match_reference_without_yaml():
+    opts = ["blip2.t5.d_model=64", "blip2.t5.dense_act_fn=gelu_new",
+            "blip2.qformer.cross_attention_freq=1", "blip2.pos_scale=0.5",
+            "blip2.freeze_t5_except_embeddings=false", "blip2.prompt={}",
+            "train.max_iters=7", "train.iters_per_inner_epoch=3"]
+    j = jconfig.apply_overrides(jconfig.Config(), opts)
+    t = tconfig.apply_overrides(tconfig.Config(), opts)
+    for g in ("blip2", "train"):
+        assert dataclasses.asdict(getattr(j, g)) == dataclasses.asdict(getattr(t, g)), g
+
+
 _TINY = ["lang.num_layers=1", "lang.hidden_size=32", "lang.num_heads=2",
          "lang.intermediate_size=64", "lang.vocab_size=64", "model.hidden_size=32",
          "model.mcan_num_heads=2", "model.mcan_num_layers=1",
@@ -133,7 +150,17 @@ def _tiny(extra=()):
     return tconfig.apply_overrides(tconfig.Config(), [*_TINY, *extra])
 
 
+_TINY_BLIP2 = ["blip2.t5.vocab_size=32", "blip2.t5.d_model=16", "blip2.t5.d_kv=4",
+               "blip2.t5.d_ff=16", "blip2.t5.num_layers=1", "blip2.t5.num_decoder_layers=1",
+               "blip2.t5.num_heads=4", "blip2.qformer.hidden_size=16",
+               "blip2.qformer.num_heads=2", "blip2.qformer.num_layers=1",
+               "blip2.qformer.intermediate_size=16", "blip2.qformer.encoder_width=24",
+               "blip2.pc_feat_dim=24"]
+
 ENTRY_POINTS = {
+    "Blip2T5": lambda kw: __import__(
+        "situation3d_tpu_torch.models.blip2_t5", fromlist=["x"]).Blip2T5(
+            _tiny(_TINY_BLIP2).blip2, **kw),
     "SIG3D": lambda kw: __import__(
         "situation3d_tpu_torch.models.sig3d", fromlist=["SIG3D"]).SIG3D(_tiny(), 5, **kw),
     "build_unet_plan": lambda kw: __import__(

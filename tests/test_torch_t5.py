@@ -1,0 +1,182 @@
+"""The port's T5 (``situation3d_tpu_torch/models/t5.py``) against the JAX
+package's at a tiny width (2 + 2 layers, d_model 64, 4 heads x 16, d_ff 128,
+vocabulary 128, 8 answer slots), float32, weights carried over by
+``load_jax_variables``; the JAX side under one ``jax.jit`` at full float32
+matmul precision.
+
+Tolerances: logits within 1e-5 of the largest logit (the same float32 sums
+in another order); decoded tokens equal, token for token: greedy, beam
+search (3 beams) and nucleus sampling with JAX's Gumbel draws injected.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from situation3d_tpu.models import t5 as jt5
+from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
+from situation3d_tpu_torch.models import t5 as tt5
+from torch_port_util import blip2_cfgs, random_variables_of, t2n, to_numpy_tree
+
+torch.set_num_threads(1)
+LOGIT_RTOL = 1e-5
+B, LE, LD, MAX_LEN = 3, 10, 6, 8
+START, EOS, PAD = 0, 1, 0
+
+
+def _jit(fn, *args):
+    with jax.default_matmul_precision("highest"):
+        return jax.tree_util.tree_map(np.asarray, jax.jit(fn)(*args))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    jcfg, tcfg = blip2_cfgs()
+    c = jcfg.blip2.t5
+    rng = np.random.RandomState(0)
+    emb = rng.randn(B, LE, c.d_model).astype(np.float32)
+    emask = (np.arange(LE)[None] < np.array([10, 7, 4])[:, None]).astype(np.int32)
+    dec = rng.randint(0, c.vocab_size, (B, LD)).astype(np.int32)
+    dmask = (np.arange(LD)[None] < np.array([6, 4, 2])[:, None]).astype(np.int32)
+    jm = jt5.T5ForConditionalGeneration(c)
+    v = random_variables_of(lambda: jm.init(jax.random.PRNGKey(0), emb, emask, dec, dmask),
+                            rng)
+    # a second set of weights whose EOS column is scaled up, so that rows end
+    # early and the stopping rules run
+    p = jax.tree_util.tree_map(np.array, to_numpy_tree(v["params"]))
+    p["lm_head"]["kernel"][:, EOS] *= 2.5
+    v_eos = {"params": jax.tree_util.tree_map(jnp.asarray, p)}
+    port = {}
+    for name, variables in (("plain", v), ("eos", v_eos)):
+        m = tt5.T5ForConditionalGeneration(tcfg.blip2.t5)
+        assert load_jax_variables(m, to_numpy_tree(variables["params"]), {}) == []
+        port[name] = m
+    return {"jm": jm, "v": {"plain": v, "eos": v_eos}, "port": port, "emb": emb,
+            "emask": emask, "dec": dec, "dmask": dmask, "cfg": c}
+
+
+def _t(x, long=False):
+    t = torch.from_numpy(np.asarray(x))
+    return t.long() if long else t
+
+
+def test_logits_match_reference(ref):
+    jm, v = ref["jm"], ref["v"]["plain"]
+    want = _jit(lambda v: jm.apply(v, ref["emb"], ref["emask"], ref["dec"], ref["dmask"]), v)
+    got = t2n(ref["port"]["plain"](_t(ref["emb"]), _t(ref["emask"]), _t(ref["dec"], True),
+                                   _t(ref["dmask"])))
+    assert got.shape == (B, LD, ref["cfg"].vocab_size)
+    assert np.abs(got - want).max() <= LOGIT_RTOL * np.abs(want).max()
+
+
+def test_loss_pieces_match_reference(ref):
+    """``shift_right``, ``t5_cross_entropy`` and the repetition penalty."""
+    rng = np.random.RandomState(3)
+    labels = np.where(ref["dmask"] > 0, ref["dec"], -100).astype(np.int32)
+    np.testing.assert_array_equal(
+        t2n(tt5.shift_right(_t(labels, True), START, PAD)),
+        np.asarray(jt5.shift_right(jnp.asarray(labels), START, PAD)))
+    logits = rng.randn(B, LD, 128).astype(np.float32) * 3
+    np.testing.assert_allclose(
+        float(tt5.t5_cross_entropy(_t(logits), _t(labels, True), _t(ref["dmask"]))),
+        float(jt5.t5_cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                   jnp.asarray(ref["dmask"]))), rtol=1e-6)
+    seen = rng.rand(B, 128) < 0.3
+    np.testing.assert_array_equal(
+        t2n(tt5.apply_repetition_penalty(_t(logits[:, 0]), _t(seen), 1.3)),
+        np.asarray(jt5.apply_repetition_penalty(jnp.asarray(logits[:, 0]),
+                                                jnp.asarray(seen), 1.3)))
+
+
+def test_decode_step_through_the_cache_matches_the_full_decode(ref):
+    """Step by step through the 8-slot cache, the logits of each position
+    equal the teacher-forced decode's (no decoder mask), as in the
+    reference; the cache index advances one a step."""
+    m = ref["port"]["plain"]
+    emb, emask = _t(ref["emb"]), _t(ref["emask"])
+    dec = _t(ref["dec"], True)
+    with torch.no_grad():
+        enc = m.encode(emb, emask)
+        full = t2n(m.decode_train(enc, emask, dec, torch.ones(B, LD, dtype=torch.int32)))
+        cache = m.init_cache(B)
+        steps = [t2n(m.decode_step(enc, emask, dec[:, i:i + 1], cache))[:, 0]
+                 for i in range(LD)]
+    assert cache.index == LD and cache.layers[0]["key"].shape == (B, 4, MAX_LEN, 16)
+    got = np.stack(steps, 1)
+    assert np.abs(got - full).max() <= LOGIT_RTOL * np.abs(full).max()
+
+
+@pytest.mark.parametrize("weights,max_len", [("plain", MAX_LEN), ("eos", MAX_LEN),
+                                             ("plain", MAX_LEN + 3)])
+def test_greedy_tokens_equal_reference(ref, weights, max_len):
+    """Past the 8 cache slots (``max_len`` 11) the reference clamps the write
+    and the bias row to the last slot; the port does the same."""
+    jm, v = ref["jm"], ref["v"][weights]
+    want = _jit(lambda v: jt5.greedy_decode(jm, v, ref["emb"], ref["emask"], max_len,
+                                            START, EOS, PAD), v)
+    got = t2n(tt5.greedy_decode(ref["port"][weights], _t(ref["emb"]), _t(ref["emask"]),
+                                max_len, START, EOS, PAD))
+    np.testing.assert_array_equal(got, want)
+    if weights == "eos":   # some row ended early, padded after its EOS
+        assert (want == EOS).any() and (want[:, -1] == PAD).any()
+
+
+@pytest.mark.parametrize("weights,min_length,length_penalty", [
+    ("plain", 1, 1.0), ("eos", 1, 1.0), ("eos", 3, 0.6)])
+def test_beam_tokens_equal_reference(ref, weights, min_length, length_penalty):
+    jm, v = ref["jm"], ref["v"][weights]
+    want = _jit(lambda v: jt5.beam_search_decode(
+        jm, v, ref["emb"], ref["emask"], MAX_LEN, START, EOS, PAD, num_beams=3,
+        length_penalty=length_penalty, min_length=min_length), v)
+    got = t2n(tt5.beam_search_decode(
+        ref["port"][weights], _t(ref["emb"]), _t(ref["emask"]), MAX_LEN, START, EOS, PAD,
+        num_beams=3, length_penalty=length_penalty, min_length=min_length))
+    np.testing.assert_array_equal(got, want)
+    if weights == "eos":
+        assert (want == EOS).any()
+
+
+def _jax_gumbel(key, n, shape):
+    """The noise ``jax.random.categorical`` adds at each step of the
+    reference's ``sample_decode``: the loop splits its key once a step."""
+    out = []
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.gumbel(sub, shape, jnp.float32)))
+    return torch.from_numpy(np.stack(out))
+
+
+@pytest.mark.parametrize("weights,kw", [
+    ("plain", dict(top_p=0.9, temperature=1.0, min_length=1, repetition_penalty=1.0)),
+    ("eos", dict(top_p=0.5, temperature=0.7, min_length=2, repetition_penalty=1.3)),
+])
+def test_sample_tokens_equal_reference_with_its_draws(ref, weights, kw):
+    jm, v = ref["jm"], ref["v"][weights]
+    key = jax.random.PRNGKey(11)
+    want = _jit(lambda v: jt5.sample_decode(jm, v, ref["emb"], ref["emask"], MAX_LEN,
+                                            START, EOS, PAD, key, **kw), v)
+    got = t2n(tt5.sample_decode(ref["port"][weights], _t(ref["emb"]), _t(ref["emask"]),
+                                MAX_LEN, START, EOS, PAD,
+                                gumbel=_jax_gumbel(key, MAX_LEN, (B, 128)), **kw))
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(want)) > 3      # the draws picked different tokens
+
+
+def test_remat_recomputes_blocks_with_the_same_results(ref):
+    """``t5.remat`` recomputes each block in the backward: the loss and every
+    gradient equal the plain run's (the same arithmetic, run twice)."""
+    import dataclasses
+    plain = ref["port"]["plain"]
+    remat = tt5.T5ForConditionalGeneration(dataclasses.replace(ref["cfg"], remat=True))
+    remat.load_state_dict(plain.state_dict())
+    labels = _t(np.where(ref["dmask"] > 0, ref["dec"], -100), True)
+    grads = []
+    for m in (plain, remat):
+        m.zero_grad()
+        logits = m(_t(ref["emb"]), _t(ref["emask"]), _t(ref["dec"], True), _t(ref["dmask"]))
+        tt5.t5_cross_entropy(logits, labels, _t(ref["dmask"])).backward()
+        grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
+    assert grads[0].keys() == grads[1].keys()
+    for n in grads[0]:
+        assert torch.equal(grads[0][n], grads[1][n]), n

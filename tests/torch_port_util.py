@@ -262,3 +262,115 @@ def assert_batches_equal(got, want):
         g, w = np.asarray(got[k]), np.asarray(want[k])
         assert g.dtype == w.dtype and g.shape == w.shape, (k, g.dtype, w.dtype, g.shape, w.shape)
         np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The 3D-LLM (BLIP-2 + T5) at a tiny width
+# ---------------------------------------------------------------------------
+
+BLIP2_TINY = [
+    "blip2.t5.vocab_size=128", "blip2.t5.d_model=64", "blip2.t5.d_kv=16",
+    "blip2.t5.d_ff=128", "blip2.t5.num_layers=2", "blip2.t5.num_decoder_layers=2",
+    "blip2.t5.num_heads=4", "blip2.t5.max_answer_len=8",
+    "blip2.qformer.num_query_tokens=4", "blip2.qformer.hidden_size=64",
+    "blip2.qformer.num_layers=2", "blip2.qformer.num_heads=4",
+    "blip2.qformer.intermediate_size=128", "blip2.qformer.encoder_width=48",
+    "blip2.qformer.scene_token_capacity=64", "blip2.pc_feat_dim=48",
+    "blip2.max_txt_len=16", "train.bf16=false",
+]
+
+
+def blip2_cfgs(extra=()):
+    """(reference Config, port Config) of the tiny 3D-LLM."""
+    from situation3d_tpu.config import Config as JConfig, apply_overrides as japply
+    from situation3d_tpu_torch.config import Config as TConfig, apply_overrides as tapply
+    opts = [*BLIP2_TINY, *extra]
+    return japply(JConfig(), opts), tapply(TConfig(), opts)
+
+
+def blip2_batch(rng, bcfg, B=3, n_points=(64, 40, 23), n_prompt=(16, 9, 5), n_ans=(3, 8, 1)):
+    """A training batch of the 3D-LLM as numpy arrays: scenes padded to the
+    scene-token capacity, prompts and answers of several lengths."""
+    N, L, La = bcfg.qformer.scene_token_capacity, bcfg.max_txt_len, bcfg.t5.max_answer_len
+    V = bcfg.t5.vocab_size
+    pc_mask = (np.arange(N)[None] < np.array(n_points[:B])[:, None]).astype(np.int32)
+    in_mask = (np.arange(L)[None] < np.array(n_prompt[:B])[:, None]).astype(np.int32)
+    l_mask = (np.arange(La)[None] < np.array(n_ans[:B])[:, None]).astype(np.int32)
+    return {
+        "pc_feat": (rng.randn(B, N, bcfg.pc_feat_dim) * pc_mask[..., None]).astype(np.float32),
+        "pc": (rng.randint(-5, 300, (B, N, 3)) * pc_mask[..., None]).astype(np.int32),
+        "pc_mask": pc_mask,
+        "input_ids": (rng.randint(2, V, (B, L)) * in_mask).astype(np.int32),
+        "input_mask": in_mask,
+        "labels": np.where(l_mask > 0, rng.randint(2, V, (B, La)), -100).astype(np.int32),
+        "label_mask": l_mask,
+    }
+
+
+def fake_t5_state_dict(c, orig_vocab, rng, prefix=""):
+    """An HF-layout T5 state dict (``encoder.block.N.layer.0.SelfAttention.q
+    .weight`` ...) of random float32 values, ``orig_vocab`` embedding rows."""
+    d, inner, dff = c.d_model, c.d_kv * c.num_heads, c.d_ff
+    sd = {"shared.weight": rng.randn(orig_vocab, d), "lm_head.weight": rng.randn(orig_vocab, d),
+          "encoder.final_layer_norm.weight": rng.rand(d),
+          "decoder.final_layer_norm.weight": rng.rand(d)}
+
+    def attn(b, rel):
+        for n in "qkv":
+            sd[f"{b}.{n}.weight"] = rng.randn(inner, d)
+        sd[f"{b}.o.weight"] = rng.randn(d, inner)
+        if rel:
+            sd[f"{b}.relative_attention_bias.weight"] = rng.randn(
+                c.relative_attention_num_buckets, c.num_heads)
+
+    def ff(b):
+        for n in ("wi_0", "wi_1"):
+            sd[f"{b}.DenseReluDense.{n}.weight"] = rng.randn(dff, d)
+        sd[f"{b}.DenseReluDense.wo.weight"] = rng.randn(d, dff)
+        sd[f"{b}.layer_norm.weight"] = rng.rand(d)
+
+    for stack, n, layers in (("encoder", c.num_layers, ("SelfAttention",)),
+                             ("decoder", c.num_decoder_layers,
+                              ("SelfAttention", "EncDecAttention"))):
+        for i in range(n):
+            for j, kind in enumerate(layers):
+                attn(f"{stack}.block.{i}.layer.{j}.{kind}", i == 0 and kind == "SelfAttention")
+                sd[f"{stack}.block.{i}.layer.{j}.layer_norm.weight"] = rng.rand(d)
+            ff(f"{stack}.block.{i}.layer.{len(layers)}")
+    return {prefix + k: (v * 0.3).astype(np.float32) for k, v in sd.items()}
+
+
+def fake_blip2_state_dict(bcfg, orig_vocab, rng):
+    """A reference BLIP-2 training checkpoint's state dict (query tokens,
+    ``Qformer.bert.*``, ``t5_proj``, ``t5_model.shared`` / ``lm_head``)."""
+    q = bcfg.qformer
+    H, I, W = q.hidden_size, q.intermediate_size, q.encoder_width
+    sd = {"query_tokens": rng.randn(1, q.num_query_tokens, H),
+          "Qformer.bert.embeddings.LayerNorm.weight": 1 + 0.1 * rng.randn(H),
+          "Qformer.bert.embeddings.LayerNorm.bias": 0.1 * rng.randn(H),
+          "t5_proj.weight": rng.randn(bcfg.t5.d_model, H) * 0.1,
+          "t5_proj.bias": rng.randn(bcfg.t5.d_model) * 0.1,
+          "t5_model.shared.weight": rng.randn(orig_vocab, bcfg.t5.d_model),
+          "t5_model.lm_head.weight": rng.randn(orig_vocab, bcfg.t5.d_model) * 0.1}
+
+    def dense(name, n_out, n_in):
+        sd[f"{name}.weight"] = rng.randn(n_out, n_in) / np.sqrt(n_in)
+        sd[f"{name}.bias"] = 0.1 * rng.randn(n_out)
+
+    def norm(name, n):
+        sd[f"{name}.weight"] = 1 + 0.1 * rng.randn(n)
+        sd[f"{name}.bias"] = 0.1 * rng.randn(n)
+
+    for i in range(q.num_layers):
+        b = f"Qformer.bert.encoder.layer.{i}"
+        for name, kvw in [("attention", H)] + (
+                [("crossattention", W)] if i % q.cross_attention_freq == 0 else []):
+            dense(f"{b}.{name}.self.query", H, H)
+            dense(f"{b}.{name}.self.key", H, kvw)
+            dense(f"{b}.{name}.self.value", H, kvw)
+            dense(f"{b}.{name}.output.dense", H, H)
+            norm(f"{b}.{name}.output.LayerNorm", H)
+        dense(f"{b}.intermediate_query.dense", I, H)
+        dense(f"{b}.output_query.dense", H, I)
+        norm(f"{b}.output_query.LayerNorm", H)
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
