@@ -11,10 +11,15 @@ detection path (forward, boxes and mAP, detection loss and its gradients),
 SIG3D trained and evaluated from SQA3D-layout files written on the spot
 through ``cli.train`` / ``cli.eval`` (plain, scene cache, segmentation,
 visualization) / ``cli.infer``, with host-built UNet plans held against the
-device's, and the 3D-LLM (BLIP-2 Q-Former + FlanT5-XL, full width: three
+device's, the 3D-LLM (BLIP-2 Q-Former + FlanT5-XL, full width: three
 frozen-T5 training steps, greedy and beam decoding, then ``cli.train`` /
 ``cli.eval`` / ``cli.infer`` / ``cli.score`` on 3D-VQA files and a small
-float32 model held against the CPU) — and checks what comes out.
+float32 model held against the CPU), and BLIP-2 stage 1 with the model zoo
+(the text-capable Q-Former trained directly and through ``cli.train --task
+stage1`` on 3D-VQA files, scene-text retrieval through the ``retrieval``
+task, ``Blip2OPT`` at OPT-2.7B decoding and its training loss, MED at
+bert-base, EVA-CLIP-g and CLIP-L forwards, small float32 models held against
+the CPU) — and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA device, ``nvcc`` and no network. Exits non-zero when any phase
@@ -24,7 +29,8 @@ JSON line per phase, the card's name and power limit, one JSON object
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--only device,kernels`` runs a subset of the phases (a first check of a
-changed kernel; ``--only blip2`` the 3D-LLM alone); the contract lines are
+changed kernel; ``--only blip2`` the 3D-LLM alone, ``--only blip2_stage1``
+stage 1, retrieval and the model zoo); the contract lines are
 printed only by a full run. The
 ``kernels`` phase holds ``fused_sparse_conv`` to its plain version at every
 conv class of the encoder (the SIG3D forward's total), of the decoder and of
@@ -88,9 +94,16 @@ from situation3d_tpu_torch.eval.detection import (APCalculator,
                                                   parse_groundtruths,
                                                   parse_predictions)
 from situation3d_tpu_torch.eval.serving import SceneCache
+from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
+from situation3d_tpu_torch.eval.retrieval import compute_sim_matrix
+from situation3d_tpu_torch.models.blip2_opt import Blip2OPT, opt_predict_answers
+from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
 from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, generate, predict_answers
+from situation3d_tpu_torch.models.med import MedBertLMHeadModel, MedBertModel, MedConfig
+from situation3d_tpu_torch.models.opt import OPTConfig
 from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
                                                 make_sample_draws)
+from situation3d_tpu_torch.models.vit import init_vision_encoder
 from situation3d_tpu_torch.models.votenet import VoteNet
 from situation3d_tpu_torch.ops import native, pointnet2
 from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
@@ -105,8 +118,11 @@ from situation3d_tpu_torch.sparse.tensor import SparseVoxels
 from situation3d_tpu_torch.tools.profile_forward import blip2_bench_batch
 from situation3d_tpu_torch.train.blip2_trainer import (Blip2TrainState, blip2_train_step,
                                                       make_blip2_optimizer)
+from situation3d_tpu_torch.train.checkpoint import load_npz_tree
 from situation3d_tpu_torch.train.detection_losses import get_detection_loss
 from situation3d_tpu_torch.train.losses import get_loss
+from situation3d_tpu_torch.train.optim import make_optimizer
+from situation3d_tpu_torch.train.tasks import RetrievalTask
 from situation3d_tpu_torch.train.trainer import Trainer, create_train_state, train_step
 
 HBM_BYTES_PER_S = 3.35e12
@@ -2202,11 +2218,331 @@ def phase_blip2(work: str) -> None:
     emit("blip2", seconds=round(time.perf_counter() - t0, 2))
 
 
+# ---------------------------------------------------------------------------
+# BLIP-2 stage 1 (the text-capable Q-Former), scene-text retrieval and the
+# model zoo (OPT-2.7B Blip2OPT, MED, EVA-CLIP-g, CLIP-L) at full width
+# ---------------------------------------------------------------------------
+
+S1_BATCH, S1_TEXT, S1_STEPS = 8, 32, 3   # 8 pairs a step (24 ITM rows), captions of 32
+S1_WIDTH: list = []    # the default QFormerConfig; a rehearsal shrinks it
+RET_N, RET_K = 32, 16  # retrieval: 32 scenes x 32 captions, k_test 16
+OPT_DECODE_BATCH, OPT_PROMPT, OPT_GEN, OPT_TRAIN_BATCH = 8, 32, 10, 4
+OPT_NEWLINE = 50118    # "\n" in OPT's GPT-2 BPE: where the reference ends an answer
+OPT_CFG = OPTConfig()  # opt-2.7b; a rehearsal shrinks it
+MED_CFG = MedConfig()  # bert-base, cross-attention into a 768-d ViT-B
+ZOO_BATCH, VIT_IMG = 8, 224
+S1_SMALL = ["blip2.qformer.num_query_tokens=4", "blip2.qformer.hidden_size=64",
+            "blip2.qformer.num_layers=2", "blip2.qformer.num_heads=4",
+            "blip2.qformer.intermediate_size=128", "blip2.qformer.encoder_width=48",
+            "blip2.qformer.vocab_size=96", "blip2.qformer.max_position=40",
+            "blip2.qformer.scene_token_capacity=64", "train.bf16=false"]
+
+
+def build_vit(name: str):
+    """A vision encoder and its ``ln_vision`` at the reference's width, bf16
+    compute, on the card."""
+    return init_vision_encoder(name, img_size=VIT_IMG, dtype=torch.bfloat16, device=DEV,
+                               seed=SEED)
+
+
+def _release() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _peak_gb() -> float:
+    return round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+
+
+def _stage1_batch(qcfg, B: int, rng) -> dict:
+    """Every scene token valid; captions of ragged lengths (pad 0), ids
+    below the two reserved top ids."""
+    N, L = qcfg.scene_token_capacity, S1_TEXT
+    tm = (np.arange(L)[None] < rng.randint(4, L + 1, (B, 1))).astype(np.int32)
+    return {"image_embeds": torch.from_numpy(
+                rng.randn(B, N, qcfg.encoder_width).astype(np.float32)).to(DEV),
+            "image_mask": torch.ones(B, N, dtype=torch.int32, device=DEV),
+            "text_ids": torch.from_numpy((rng.randint(4, qcfg.vocab_size - 2, (B, L)) * tm
+                                          ).astype(np.int32)).to(DEV),
+            "text_mask": torch.from_numpy(tm).to(DEV)}
+
+
+def stage1_train(cfg) -> dict:
+    """``S1_STEPS`` optimizer steps of the full-width ``Blip2Qformer`` at
+    B=``S1_BATCH`` (ITC over 8 pairs, ITM over 24 rows, LM), bf16 compute,
+    float32 parameters, one fresh negative draw a step: losses finite and
+    every parameter moved."""
+    qcfg = cfg.blip2.qformer
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = _timed(lambda: Blip2Qformer(qcfg, dtype=torch.bfloat16, device=DEV,
+                                                 seed=SEED))
+    opt, _ = make_optimizer(cfg.train, model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = _stage1_batch(qcfg, S1_BATCH, np.random.RandomState(SEED + 80))
+    negatives = torch.Generator(device=DEV).manual_seed(SEED + 81)
+    model.train()
+
+    def step():
+        out = model(batch, generator=negatives)
+        opt.discard()
+        out["loss"].backward()
+        opt.step()
+        return {k: float(v.detach()) for k, v in out.items()}
+
+    losses, step_s = [], []
+    for _ in range(S1_STEPS):
+        m, s = _timed(step)
+        losses.append(m)
+        step_s.append(s)
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        fail(f"blip2_stage1 train: losses {losses}")
+    still = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    if still:
+        fail(f"blip2_stage1 train: parameters that did not move {still}")
+    rec = {"batch_size": S1_BATCH, "itm_rows": 3 * S1_BATCH, "text_len": S1_TEXT,
+           "scene_tokens": qcfg.scene_token_capacity,
+           "params": sum(p.numel() for p in model.parameters()),
+           "tensors_moved": len(before), "build_s": round(build_s, 3), "losses": losses,
+           "step_s": [round(s, 4) for s in step_s],
+           "samples_per_s": round(S1_BATCH * (S1_STEPS - 1) / sum(step_s[1:]), 3),
+           "peak_memory_gb": _peak_gb()}
+    emit("blip2_stage1_train", **rec)
+    del model, opt, before, batch
+    _release()
+    return rec
+
+
+def stage1_entry_point(work: str, cfg) -> dict:
+    """``cli.train --task stage1 --max-steps 3`` on 3D-VQA files (3 scenes
+    of ``B2_POINTS`` points, 12 questions; B=8, so an epoch is one step):
+    the losses logged finite, and the ``.npz`` read back over a fresh model
+    through the reference's tree paths, every leaf used and trained."""
+    import os
+    ds_cfg, _, _ = write_3dvqa_files(os.path.join(work, "data"),
+                                     cfg.blip2.qformer.encoder_width)
+    opts = [*S1_WIDTH, f"train.batch_size={S1_BATCH}", f"train.epochs={S1_STEPS}",
+            "train.log_every_steps=1", f"log.log_dir={work}/logs",
+            f"train.ckpt_dir={work}/ckpt"]
+    res, secs = _timed(lambda: cli_train.main(
+        ["--task", "stage1", "--dataset-config", ds_cfg, "--max-steps", str(S1_STEPS),
+         "--device", DEV, "--output", f"{work}/run", "--options", *opts]))
+    with open(f"{work}/logs/metrics.jsonl") as fh:
+        rows = [json.loads(x) for x in fh]
+    keys = ("loss", "loss_itc", "loss_itm", "loss_lm")
+    if res["step"] != S1_STEPS or [r["step"] for r in rows] != list(range(1, S1_STEPS + 1)) \
+            or not all(np.isfinite(r[k]) for r in rows for k in keys):
+        fail(f"blip2_stage1 cli.train: {res}, rows {rows}")
+    tree = load_npz_tree(res["npz"])
+    fresh = Blip2Qformer(cfg.blip2.qformer, device=DEV,
+                         seed=apply_overrides(Config(), opts).train.seed)
+    seeded = {n: p.detach().clone() for n, p in fresh.named_parameters()}
+    unused = load_jax_variables(fresh, tree, {})
+    untrained = [n for n, p in fresh.named_parameters() if torch.equal(p, seeded[n])]
+    if unused or untrained or res["tensors"] != len(seeded):
+        fail(f"blip2_stage1 .npz: unused leaves {unused}, tensors equal to the seed's "
+             f"{untrained}, {res['tensors']} tensors for {len(seeded)} parameters")
+    rec = {"steps": res["step"], "records": res["num_records"], "seconds": round(secs, 2),
+           "losses": [{k: r[k] for k in keys} for r in rows], "npz_tensors": res["tensors"]}
+    emit("blip2_stage1_cli_train", **rec)
+    del fresh, seeded, tree
+    _release()
+    return rec
+
+
+def stage1_retrieval(cfg) -> dict:
+    """``RetrievalTask.evaluation`` over ``RET_N`` scenes x ``RET_N``
+    captions with ``k_test`` 16 (1,024 ITM pair passes), bf16; then a small
+    f32 model on the card against the CPU: scores within SMALL_ATOL, every
+    rank equal."""
+    qcfg = cfg.blip2.qformer
+    task = RetrievalTask(cfg, k_test=RET_K, device=DEV)
+    model = task.build_model()
+    b = _stage1_batch(qcfg, RET_N, np.random.RandomState(SEED + 82))
+    args = (b["image_embeds"], b["image_mask"], b["text_ids"], b["text_mask"])
+    img2txt, txt2img = [[i] for i in range(RET_N)], list(range(RET_N))
+    torch.cuda.reset_peak_memory_stats()
+    metrics, secs = _timed(lambda: task.evaluation(model, *args, img2txt, txt2img))
+    rec = {"scenes": RET_N, "captions": RET_N, "k_test": RET_K,
+           "itm_pair_passes": 2 * RET_N * RET_K, "scene_tokens": qcfg.scene_token_capacity,
+           "seconds": round(secs, 3), "recall": {k: round(v, 3) for k, v in metrics.items()},
+           "peak_memory_gb": _peak_gb()}
+    del model, b, args
+    _release()
+
+    small = apply_overrides(Config(), S1_SMALL).blip2.qformer
+    rng = np.random.RandomState(SEED + 83)
+    n, N = 9, small.scene_token_capacity
+    im = (np.arange(N)[None] < rng.randint(8, N + 1, (n, 1))).astype(np.int32)
+    tm = (np.arange(12)[None] < rng.randint(2, 13, (n, 1))).astype(np.int32)
+    data = ((rng.randn(n, N, small.encoder_width) * im[..., None]).astype(np.float32), im,
+            (rng.randint(4, small.vocab_size - 2, (n, 12)) * tm).astype(np.int32), tm)
+    cpu = Blip2Qformer(small, device="cpu", seed=SEED + 84)
+    init_random_weights(cpu, SEED + 85, std=None)      # N(0, 1 / fan_in): O(1) scores
+    gpu = Blip2Qformer(small, device=DEV)
+    gpu.load_state_dict(cpu.state_dict())
+    want = compute_sim_matrix(cpu, *data, k_test=4, encode_batch=4, rerank_chunk=3)
+    got = compute_sim_matrix(gpu, *data, k_test=4, encode_batch=4, rerank_chunk=3)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    ranks_equal = all(np.array_equal(np.argsort(-g, axis=1), np.argsort(-w, axis=1))
+                      for g, w in zip(got, want))
+    if not err <= SMALL_ATOL or not ranks_equal:
+        fail(f"small Blip2Qformer retrieval: card vs CPU scores max abs err {err} "
+             f"(tolerance {SMALL_ATOL}), ranks equal: {ranks_equal}")
+    rec.update(small_f32_scores_max_abs_err=err, small_f32_ranks_equal=True)
+    emit("blip2_stage1_retrieval", **rec)
+    return rec
+
+
+def _opt_batch(qcfg, ocfg, B: int, rng, prompt: int, answer: int = 0) -> dict:
+    """Scenes of full length; prompts left-padded to ``prompt`` tokens with
+    ragged real lengths (the first row full), then ``answer`` more tokens
+    each, marked by ``target_mask``."""
+    N, L = qcfg.scene_token_capacity, prompt + answer
+    lens = np.concatenate([[prompt], rng.randint(4, prompt + 1, B - 1)]) + answer
+    mask = (np.arange(L)[None] >= L - lens[:, None]).astype(np.int32)
+    ids = np.where(mask > 0, rng.randint(3, min(ocfg.vocab_size, 50000), (B, L)),
+                   ocfg.pad_token_id).astype(np.int32)
+    return {"pc_feat": rng.randn(B, N, qcfg.encoder_width).astype(np.float32),
+            "pc": rng.randint(0, 256, (B, N, 3)).astype(np.int32),
+            "pc_mask": np.ones((B, N), np.int32), "input_ids": ids, "input_mask": mask,
+            "target_mask": (mask * (np.arange(L)[None] >= prompt)).astype(np.int32)}
+
+
+def zoo_blip2_opt(cfg) -> dict:
+    """``Blip2OPT`` at OPT-2.7B, bf16 compute, float32 parameters: greedy
+    decode of ``OPT_GEN`` tokens at B=8 after ragged left-padded prompts of
+    up to 32 tokens (every step run: no end token; then once stopping at the
+    newline as the reference does), the training forward and loss at B=4;
+    then a small f32 model on the card against the CPU, tokens equal."""
+    qcfg = cfg.blip2.qformer
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = _timed(lambda: Blip2OPT(qcfg, OPT_CFG, cfg.blip2.pc_feat_dim,
+                                             dtype=torch.bfloat16, device=DEV, seed=SEED))
+    rec = {"params": sum(p.numel() for p in model.parameters()),
+           "opt_params": sum(p.numel() for p in model.opt.parameters()),
+           "build_s": round(build_s, 3), "batch_size": OPT_DECODE_BATCH,
+           "prompt_max": OPT_PROMPT, "max_len": OPT_GEN,
+           "scene_tokens": 2 * qcfg.scene_token_capacity}
+    rng = np.random.RandomState(SEED + 86)
+    dbatch = tree_to_device(_opt_batch(qcfg, OPT_CFG, OPT_DECODE_BATCH, rng, OPT_PROMPT), DEV)
+    tbatch = tree_to_device(_opt_batch(qcfg, OPT_CFG, OPT_TRAIN_BATCH, rng, OPT_PROMPT,
+                                       answer=8), DEV)
+    with torch.inference_mode():
+        opt_predict_answers(model, dbatch, OPT_GEN, eos_id=-1)            # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        tokens, greedy_s = _timed(lambda: opt_predict_answers(model, dbatch, OPT_GEN,
+                                                              eos_id=-1))
+        rec["decode_peak_memory_gb"] = _peak_gb()
+        newline, newline_s = _timed(lambda: opt_predict_answers(model, dbatch, OPT_GEN,
+                                                                eos_id=OPT_NEWLINE))
+        model(tbatch)                                                    # warm-up
+        out, train_s = _timed(lambda: model(tbatch))
+    loss = float(out["loss"])
+    if tokens.shape != (OPT_DECODE_BATCH, OPT_GEN) or newline.shape != tokens.shape \
+            or not np.isfinite(loss) or not bool(torch.isfinite(out["logits"].float()).all()):
+        fail(f"blip2_opt: tokens {tuple(tokens.shape)}, loss {loss}")
+    rec.update(prompt_lengths=dbatch["input_mask"].sum(1).tolist(),
+               greedy_s=round(greedy_s, 4),
+               tokens_per_s=round(OPT_DECODE_BATCH * OPT_GEN / greedy_s, 2),
+               newline_eos_s=round(newline_s, 4),
+               newline_eos_tokens=int((newline != OPT_CFG.pad_token_id).sum()),
+               train_forward_batch=OPT_TRAIN_BATCH, train_forward_ms=round(1e3 * train_s, 2),
+               train_loss=loss)
+    del model, dbatch, tbatch, out, tokens, newline
+    _release()
+
+    small_q, small_o = apply_overrides(Config(), S1_SMALL).blip2.qformer, OPTConfig.tiny()
+    cpu = Blip2OPT(small_q, small_o, 48, device="cpu", seed=SEED + 87)
+    init_random_weights(cpu, SEED + 88, std=None)
+    gpu = Blip2OPT(small_q, small_o, 48, device=DEV)
+    gpu.load_state_dict(cpu.state_dict())
+    sb = _opt_batch(small_q, small_o, 3, np.random.RandomState(SEED + 89), 7, answer=3)
+    with torch.inference_mode():
+        want, got = cpu(sb)["logits"], gpu(sb)["logits"].cpu()
+        t_want = opt_predict_answers(cpu, sb, 6, eos_id=-1)
+        t_got = opt_predict_answers(gpu, sb, 6, eos_id=-1).cpu()
+    err = float((got - want).abs().max())
+    if not err <= SMALL_ATOL or not torch.equal(t_got, t_want):
+        fail(f"small Blip2OPT: card vs CPU logits max abs err {err} (tolerance {SMALL_ATOL}), "
+             f"greedy tokens equal: {torch.equal(t_got, t_want)}")
+    rec.update(small_f32_logits_max_abs_err=err, small_f32_tokens_equal=True)
+    emit("blip2_opt", **rec)
+    return rec
+
+
+def zoo_med_vit() -> dict:
+    """MED at bert-base (text mode, multimodal mode, the LM head and its
+    loss; B=8, 32 tokens, cross-attention into 197 ViT-B tokens), EVA-CLIP-g
+    and CLIP-L (a forward each at B=8 of 224 x 224 images, ``ln_vision``
+    after), bf16 compute."""
+    rng = np.random.RandomState(SEED + 90)
+    B, L = ZOO_BATCH, 32
+    ids = torch.from_numpy(rng.randint(0, MED_CFG.vocab_size, (B, L))).to(DEV)
+    am = torch.from_numpy((np.arange(L)[None] < rng.randint(8, L + 1, (B, 1))
+                           ).astype(np.int32)).to(DEV)
+    kw = dict(token_type_ids=torch.zeros_like(ids),
+              encoder_hidden_states=torch.from_numpy(
+                  rng.randn(B, 197, MED_CFG.encoder_width).astype(np.float32)).to(DEV),
+              encoder_attention_mask=torch.ones(B, 197, dtype=torch.int32, device=DEV))
+    labels = torch.where(am > 0, ids, -100)
+    torch.cuda.reset_peak_memory_stats()
+    med = MedBertModel(MED_CFG, dtype=torch.bfloat16, device=DEV, seed=SEED)
+    lm = MedBertLMHeadModel(MED_CFG, dtype=torch.bfloat16, device=DEV, seed=SEED + 1)
+    rec = {"med_params": sum(p.numel() for p in med.parameters()),
+           "med_lm_params": sum(p.numel() for p in lm.parameters())}
+    with torch.inference_mode():
+        finite = True
+        for mode in ("text", "multimodal"):
+            seq, pooled = med(ids, am, mode=mode, **kw)
+            finite &= bool(torch.isfinite(seq.float()).all() and torch.isfinite(pooled.float()).all())
+            rec[f"med_{mode}_ms"] = round(time_cuda(lambda: med(ids, am, mode=mode, **kw),
+                                                    iters=3, warmup=1), 3)
+        loss = float(MedBertLMHeadModel.lm_loss(lm(ids, am, **kw), labels))
+        rec["med_lm_loss_ms"] = round(time_cuda(lambda: MedBertLMHeadModel.lm_loss(
+            lm(ids, am, **kw), labels), iters=3, warmup=1), 3)
+    if not finite or not np.isfinite(loss):
+        fail(f"MED: outputs finite {finite}, LM loss {loss}")
+    rec.update(med_lm_loss=loss, med_peak_memory_gb=_peak_gb())
+    del med, lm, seq, pooled, kw
+    _release()
+    images = torch.rand(B, VIT_IMG, VIT_IMG, 3, device=DEV)
+    for name in ("eva_clip_g", "clip_L"):
+        torch.cuda.reset_peak_memory_stats()
+        vit, ln_vision = build_vit(name)
+        vcfg = vit.cfg
+        with torch.inference_mode():
+            out = ln_vision(vit(images))
+            ms = time_cuda(lambda: ln_vision(vit(images)), iters=3, warmup=1)
+        if tuple(out.shape) != (B, 1 + vcfg.num_patches, vcfg.embed_dim) or \
+                not bool(torch.isfinite(out.float()).all()):
+            fail(f"{name}: output {tuple(out.shape)}, or not finite")
+        rec[name] = {"depth": vcfg.depth, "width": vcfg.embed_dim,
+                     "params": sum(p.numel() for p in vit.parameters()),
+                     "tokens": 1 + vcfg.num_patches, "ms": round(ms, 3),
+                     "peak_memory_gb": _peak_gb()}
+        del vit, ln_vision, out
+        _release()
+    emit("model_zoo", batch_size=B, **rec)
+    return rec
+
+
+def phase_blip2_stage1(work: str) -> None:
+    t0 = time.perf_counter()
+    cfg = apply_overrides(Config(), [*S1_WIDTH, "train.bf16=true"])
+    stage1_train(cfg)
+    stage1_entry_point(work, cfg)
+    stage1_retrieval(cfg)
+    zoo_blip2_opt(cfg)
+    zoo_med_vit()
+    emit("blip2_stage1", seconds=round(time.perf_counter() - t0, 2))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
                     "device,kernels,forward,train,serving,minkunet,detection,sqa3d,"
-                    "blip2,reference")
+                    "blip2,blip2_stage1,reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2215,7 +2551,7 @@ def main() -> int:
         return 1
     phases = [p for p in args.only.split(",") if p] or \
         ["device", "kernels", "forward", "train", "serving", "minkunet", "detection",
-         "sqa3d", "blip2", "reference"]
+         "sqa3d", "blip2", "blip2_stage1", "reference"]
     full_run = not args.only
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
@@ -2244,6 +2580,9 @@ def main() -> int:
     if "blip2" in phases:
         with tempfile.TemporaryDirectory() as work:
             phase_blip2(work)
+    if "blip2_stage1" in phases:
+        with tempfile.TemporaryDirectory() as work:
+            phase_blip2_stage1(work)
     if "reference" in phases:
         phase_reference()
         phase_reference_detection()

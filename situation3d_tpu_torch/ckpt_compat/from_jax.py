@@ -3,14 +3,22 @@
 ``load_jax_variables(model, params, batch_stats)`` takes the reference
 model's ``params`` and ``batch_stats`` trees as nested dicts of NUMPY arrays
 (this module imports no JAX) and fills a port model (``SIG3D``, ``VoteNet``,
-``Blip2T5`` or any of their parts). The port's module paths equal the
+``Blip2T5``, ``Blip2Qformer``, ``Blip2OPT``, ``OPTForCausalLM``, the MED and
+ViT models, or any of their parts). The port's module paths equal the
 reference's tree paths, so the mapping is by module type:
 
   Dense          kernel [in, out] -> weight [out, in]; bias (where it has one)
   Embed          embedding -> weight
   LayerNorm      scale -> weight; bias
   T5LayerNorm    weight
-  QFormer        query_tokens
+  QFormer, QFormerTextModel   query_tokens
+  Blip2Qformer, Blip2ITM      temp; lm_bias
+  MedBertModel   position_embeddings
+  EvaAttention   qkv_kernel, layout kept; q_bias, k_bias, v_bias (where it has them)
+  PatchEmbed     kernel (HWIO), layout kept; bias (where it has one)
+  EvaViT         cls_token; pos_embed
+  ClipViT        class_embedding; positional_embedding
+  SharedRelPosBias  table
   MCANLayerNorm  scale; bias
   SparseConv / SparseConv1x1   kernel, layout kept; bias (where it has one)
   SparseBatchNorm, BatchNorm  params scale, bias; batch_stats mean, var
@@ -22,17 +30,30 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from situation3d_tpu_torch.models.blip2_qformer import (Blip2ITM, Blip2Qformer,
+                                                        QFormerTextModel)
 from situation3d_tpu_torch.models.layers import (BatchNorm, Dense, Embed,
                                                   LayerNorm)
 from situation3d_tpu_torch.models.mcan import MCANLayerNorm
+from situation3d_tpu_torch.models.med import MedBertModel
 from situation3d_tpu_torch.models.qformer import QFormer
 from situation3d_tpu_torch.models.t5 import T5LayerNorm
+from situation3d_tpu_torch.models.vit import (ClipViT, EvaAttention, EvaViT, PatchEmbed,
+                                              SharedRelPosBias)
 from situation3d_tpu_torch.sparse.conv import (SparseBatchNorm, SparseConv,
                                                SparseConv1x1)
 
 _NORM_RULES = [("scale", "params", "scale", False), ("bias", "params", "bias", False),
                ("mean", "batch_stats", "mean", False),
                ("var", "batch_stats", "var", False)]
+
+
+def _leaf_rules(*names):
+    """Tensors stored on the module itself, under their own names, layout kept."""
+    return [(n, "params", n, False) for n in names]
+
+
+_STAGE1 = _leaf_rules("temp", "lm_bias")
 # module type -> [(port tensor name, reference collection, reference leaf, transpose)]
 _RULES = {
     Dense: [("weight", "params", "kernel", True), ("bias", "params", "bias", False)],
@@ -40,7 +61,16 @@ _RULES = {
     LayerNorm: [("weight", "params", "scale", False), ("bias", "params", "bias", False)],
     MCANLayerNorm: [("scale", "params", "scale", False), ("bias", "params", "bias", False)],
     T5LayerNorm: [("weight", "params", "weight", False)],
-    QFormer: [("query_tokens", "params", "query_tokens", False)],
+    QFormer: _leaf_rules("query_tokens"),
+    QFormerTextModel: _leaf_rules("query_tokens"),
+    Blip2Qformer: _STAGE1,
+    Blip2ITM: _STAGE1,
+    MedBertModel: _leaf_rules("position_embeddings"),
+    EvaAttention: _leaf_rules("qkv_kernel", "q_bias", "k_bias", "v_bias"),
+    PatchEmbed: _leaf_rules("kernel", "bias"),
+    EvaViT: _leaf_rules("cls_token", "pos_embed"),
+    ClipViT: _leaf_rules("class_embedding", "positional_embedding"),
+    SharedRelPosBias: _leaf_rules("table"),
     SparseConv: [("kernel", "params", "kernel", False)],
     SparseConv1x1: [("kernel", "params", "kernel", False), ("bias", "params", "bias", False)],
     SparseBatchNorm: _NORM_RULES,
@@ -54,6 +84,19 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,)
+
+
+def reference_paths(model: torch.nn.Module) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """``{port parameter name: (reference tree path, transposed)}`` for every
+    parameter of ``model`` the rules map."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        path = tuple(mod_name.split(".")) if mod_name else ()
+        for tensor_name, coll, leaf, transpose in _RULES.get(type(mod), ()):
+            if coll == "params" and getattr(mod, tensor_name) is not None:
+                out[f"{mod_name}.{tensor_name}" if mod_name else tensor_name] = (
+                    path + (leaf,), transpose)
+    return out
 
 
 def load_jax_variables(model: torch.nn.Module, params: Mapping[str, Any],

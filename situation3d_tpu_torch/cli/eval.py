@@ -60,7 +60,7 @@ def parse_args(argv=None):
                         "(the value itself is not read, as in the reference); "
                         "3d_vqa: the port's checkpoint directory to restore")
     p.add_argument("--trainable-checkpoint", default=None,
-                   help="3d_vqa: trainable-only .npz saved by the trainer")
+                   help="3d_vqa: trainable-only .npz saved by either package's trainer")
     p.add_argument("--torch-checkpoint", default=None,
                    help="3d_vqa: reference-format torch .pth checkpoint "
                         "(converted through ckpt_compat)")

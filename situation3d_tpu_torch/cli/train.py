@@ -1,6 +1,7 @@
 """Training entry point (port of ``situation3d_tpu/cli/train.py``): SIG3D on
-SQA3D files (``sqa3d``, ``multimodal_classification``) and the 3D-LLM
-(``3d_vqa``, ``dialogue``, ``vqa_reading_comprehension``).
+SQA3D files (``sqa3d``, ``multimodal_classification``), the 3D-LLM
+(``3d_vqa``, ``dialogue``, ``vqa_reading_comprehension``) and its stage-1
+Q-Former pretraining (``stage1``).
 
 Usage:
   python3 -m situation3d_tpu_torch.cli.train --task sqa3d \\
@@ -11,6 +12,8 @@ Usage:
       --max-steps 5 --options data.num_answers=12 train.batch_size=8
   python3 -m situation3d_tpu_torch.cli.train --task 3d_vqa \\
       --dataset-config 3dvqa.yaml --max-steps 20 --options train.batch_size=4
+  python3 -m situation3d_tpu_torch.cli.train --task stage1 \\
+      --dataset-config 3dvqa.yaml --max-steps 20 --options train.batch_size=8
 
 SIG3D reads ``SQA_{split}.json`` + OpenScene ``.pth`` scenes through
 ``data/sqa3d.py``; without a file at ``data.sqa_train``, or with
@@ -23,8 +26,12 @@ evaluates the best checkpoint (``results/vqa_result.json``; ``dialogue``:
 the mean loss; ``vqa_reading_comprehension``: beam search and exact match).
 Both write ``config.json`` under ``--output``, checkpoints under
 ``train.ckpt_dir`` (``--resume`` continues from the latest), metrics under
-``log.log_dir``. Runs on the card; ``--device cpu`` asks for the CPU.
-``stage1`` waits for the stage-1 Q-Former and raises ``NotImplementedError``.
+``log.log_dir``. ``stage1`` pretrains ``Blip2Qformer`` (ITC + ITM with hard
+negatives + LM) on the same datasets' (scene features, question text)
+pairs (``data/threedvqa.py:stage1_batches``), one fresh negative draw a
+step, and writes every parameter to ``{output}/stage1_qformer.npz`` keyed by
+the reference's tree paths. Runs on the card; ``--device cpu`` asks for the
+CPU.
 """
 from __future__ import annotations
 
@@ -32,13 +39,19 @@ import argparse
 import json
 import os
 
+import torch
+
 from situation3d_tpu_torch.config import load_config, save_config, to_dict
 from situation3d_tpu_torch.data.builders import build_datasets_from_yaml
 from situation3d_tpu_torch.data.sqa3d import batch_iterator
-from situation3d_tpu_torch.data.threedvqa import eval_batches, gold_answers, train_batches
+from situation3d_tpu_torch.data.threedvqa import (eval_batches, gold_answers,
+                                                  stage1_batches, train_batches)
 from situation3d_tpu_torch.device import resolve_device
+from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
 from situation3d_tpu_torch.train.blip2_trainer import Blip2Trainer
+from situation3d_tpu_torch.train.checkpoint import save_trainable_npz
 from situation3d_tpu_torch.train.logging import MetricWriter
+from situation3d_tpu_torch.train.optim import make_optimizer
 from situation3d_tpu_torch.train.tasks import setup_task
 from situation3d_tpu_torch.utils.misc import set_seed, setup_logger
 
@@ -106,13 +119,16 @@ def train_sig3d(args, cfg, task, device, logger, log_fn) -> dict:
     return metrics
 
 
+def _3dvqa_datasets(args, cfg, task) -> dict:
+    if args.dataset_config:
+        return build_datasets_from_yaml(cfg, args.dataset_config)
+    return task.build_datasets()
+
+
 def train_3dllm(args, cfg, task, logger, log_fn) -> dict:
     """Train Blip2T5 with validation, then evaluate the best checkpoint.
     Returns ``{"step", "num_train_pairs", "num_val", "final"}``."""
-    if args.dataset_config:
-        datasets = build_datasets_from_yaml(cfg, args.dataset_config)
-    else:
-        datasets = task.build_datasets()
+    datasets = _3dvqa_datasets(args, cfg, task)
     ds, val_ds = datasets["train"], datasets["val"]
     bs = cfg.train.batch_size
     model = task.build_model()
@@ -147,11 +163,42 @@ def train_3dllm(args, cfg, task, logger, log_fn) -> dict:
             "num_val": len(val_ds), "final": final}
 
 
+def train_stage1(args, cfg, task, device, logger, log_fn) -> dict:
+    """Stage-1 pretraining of ``Blip2Qformer`` (ITC + ITM + LM), the
+    reference's iteration cadence, then every parameter to
+    ``{output}/stage1_qformer.npz``. Returns ``{"step", "num_records",
+    "losses" (the last step's), "npz", "tensors"}``."""
+    ds = _3dvqa_datasets(args, cfg, task)["train"]
+    bs, qcfg = cfg.train.batch_size, cfg.blip2.qformer
+    model = Blip2Qformer(qcfg, dtype=torch.float32, device=device, seed=cfg.train.seed)
+    optimizer, _ = make_optimizer(cfg.train, model)
+    negatives = torch.Generator(device=device).manual_seed(cfg.train.seed + 2)
+    model.train()
+    step, out = 0, {}
+    for batch in stage1_batches(ds, bs, qcfg, seed=cfg.train.seed, epochs=cfg.train.epochs):
+        out = model(batch, generator=negatives)        # one fresh negative draw a step
+        optimizer.discard()
+        out["loss"].backward()
+        optimizer.step()
+        step += 1
+        if step % cfg.train.log_every_steps == 0:
+            log_fn({k: float(v.detach()) for k, v in out.items()}, step)
+        if args.max_steps and step >= args.max_steps:
+            break
+    path = os.path.join(args.output, "stage1_qformer.npz")
+    n = save_trainable_npz(path, model, {name: True for name, _ in model.named_parameters()})
+    logger.info("stage1 done: %d steps, %d tensors saved", step, n)
+    return {"step": step, "num_records": len(ds.records),
+            "losses": {k: float(v.detach()) for k, v in out.items()}, "npz": path, "tensors": n}
+
+
 def main(argv=None) -> dict:
     """Train, then evaluate; returns what the task's branch returns."""
     args = parse_args(argv)
     cfg = load_config(args.config, args.options)
-    task = setup_task(args.task, cfg, synthetic=args.synthetic, device=args.device)
+    # stage 1 reads the 3D-VQA datasets, as the reference's entry point does
+    task = setup_task("3d_vqa" if args.task == "stage1" else args.task, cfg,
+                      synthetic=args.synthetic, device=args.device)
     device = resolve_device(args.device)
     logger = setup_logger()
     set_seed(cfg.train.seed)
@@ -169,6 +216,8 @@ def main(argv=None) -> dict:
     try:
         if args.task in ("sqa3d", "multimodal_classification"):
             return train_sig3d(args, cfg, task, device, logger, log_fn)
+        if args.task == "stage1":
+            return train_stage1(args, cfg, task, device, logger, log_fn)
         return train_3dllm(args, cfg, task, logger, log_fn)
     finally:
         writer.close()

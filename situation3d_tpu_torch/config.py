@@ -64,7 +64,7 @@ class SparseConfig:
     # dense-grid plan construction over [0, extent) stride-1 voxels
     dense_lookup: bool = True
     grid_extent: Tuple[int, ...] = (512, 512, 256)
-    # decoder tail + 768-d head; not ported yet (must stay False)
+    # decoder tail + 768-d head (openscene_out)
     final_result: bool = False
     # k3 maps from the int32-grid kernel / the bit-table kernel; in the port
     # any true value (True or "force") enables the route, and the tensor's
@@ -188,7 +188,7 @@ class QFormerConfig:
     intermediate_size: int = 3072
     cross_attention_freq: int = 2
     encoder_width: int = 1408          # scene-feature width
-    vocab_size: int = 30523            # stage-1 text vocabulary (not ported yet)
+    vocab_size: int = 30523            # stage-1 text vocabulary (Blip2Qformer)
     max_position: int = 512
     layer_norm_eps: float = 1e-12
     scene_token_capacity: int = 5120   # scene tokens a sample, padded

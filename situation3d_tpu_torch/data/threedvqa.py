@@ -12,9 +12,9 @@
 ``T5TextEncoder`` is the JAX package's hash fallback with T5's pad = 0 and
 eos = 1. It has no HF branch: the port's machines have no ``transformers``.
 Where no HF T5 tokenizer is cached, both packages take the same branch and
-give the same ids. ``stage1_batches`` belongs to stage-1 pretraining, which
-is not ported yet. Draws from ``rng`` follow the reference's order, so the
-batches equal its batches bit for bit.
+give the same ids. ``stage1_batches`` makes stage-1 pretraining's (scene
+features, caption) batches. Draws from ``rng`` follow the reference's order,
+so the batches equal its batches bit for bit.
 """
 from __future__ import annotations
 
@@ -183,6 +183,34 @@ def eval_batches(ds: ThreeDVQADataset, batch_size: int
         batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
         batch["sample_valid"] = valid
         yield batch
+
+
+def stage1_batches(ds: ThreeDVQADataset, batch_size: int, qcfg,
+                   seed: int = 0, epochs: Optional[int] = 1,
+                   text_len: int = 32) -> Iterator[Dict[str, np.ndarray]]:
+    """Stage-1 pretraining batches of (scene features, caption) pairs for
+    ``Blip2Qformer``: the records in a ``RandomState(seed)`` order each
+    epoch, the captions the cleaned question texts hash-tokenized into the
+    Q-Former's vocabulary less its two top ids (BOS is the last)."""
+    tok = HashTokenizer(qcfg.vocab_size - 2)
+    rng = np.random.RandomState(seed)
+    n = len(ds.records)
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(n)
+        for start in range(0, n - batch_size + 1, batch_size):
+            feats, masks, tids, tmask = [], [], [], []
+            for i in order[start:start + batch_size]:
+                s = ds.sample(int(i))
+                feats.append(s["pc_feat"])
+                masks.append(s["pc_mask"])
+                ids, m = tok.encode(clean_question(ds.records[int(i)]["question"]), text_len)
+                tids.append(ids)
+                tmask.append(m)
+            yield {"image_embeds": np.stack(feats), "image_mask": np.stack(masks),
+                   "text_ids": np.stack(tids).astype(np.int32),
+                   "text_mask": np.stack(tmask).astype(np.int32)}
+        epoch += 1
 
 
 def synthetic_threedvqa(cfg: Blip2Config, n_scenes: int = 2, per_scene: int = 3,

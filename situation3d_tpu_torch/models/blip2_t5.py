@@ -10,7 +10,7 @@ sampling).
 
 The model is built on its device: modules are made on ``meta``, materialised
 where they run and filled from a ``torch.Generator`` on that device
-(``init_blip2_weights``), so the 3B parameters of the default width never
+(``models/layers.py:init_blip2_weights``), so the 3B parameters of the default width never
 pass through host memory. Parameters are float32; compute runs in ``dtype``.
 Freezing (T5 frozen but its embeddings) is the optimizer's mask
 (``train/optim.py:blip2_trainable_mask``).
@@ -23,8 +23,8 @@ import torch
 from torch import nn
 
 from situation3d_tpu_torch.config import Blip2Config
-from situation3d_tpu_torch.device import resolve_device, tree_to_device
-from situation3d_tpu_torch.models.layers import Dense
+from situation3d_tpu_torch.device import tree_to_device
+from situation3d_tpu_torch.models.layers import Dense, materialise
 from situation3d_tpu_torch.models.positional import (voxel_position_embedding,
                                                      voxel_position_table)
 from situation3d_tpu_torch.models.qformer import QFormer
@@ -38,39 +38,19 @@ _MODEL_KEYS = ("pc_feat", "pc", "pc_mask", "input_ids", "input_mask",
                "labels", "label_mask")
 
 
-@torch.no_grad()
-def init_blip2_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
-    """Seeded random weights drawn on the model's device, in
-    ``named_parameters`` order: matrices and query tokens ``N(0, std)``,
-    norm weights 1, biases 0. For smoke runs and benchmarks."""
-    g = None
-    for name, p in model.named_parameters():
-        if g is None:
-            g = torch.Generator(device=p.device).manual_seed(seed)
-        if p.dim() >= 2:
-            p.normal_(0.0, std, generator=g)
-        elif name.rsplit(".", 1)[-1] == "bias":
-            p.zero_()
-        else:
-            p.fill_(1.0)
-
-
 @registry.register_model("blip2_t5")
 class Blip2T5(nn.Module):
     def __init__(self, cfg: Blip2Config, dtype: torch.dtype = torch.float32,
                  device="cuda", seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
         self.cfg, self.dtype = cfg, dtype
         with torch.device("meta"):
             self.qformer = QFormer(cfg.qformer, dtype)
             self.t5 = T5ForConditionalGeneration(cfg.t5, dtype)
             self.t5_proj = Dense(cfg.qformer.hidden_size, cfg.t5.d_model, dtype)
-        self.to_empty(device=dev)
-        init_blip2_weights(self, seed)
+        materialise(self, device, seed)
         self.register_buffer("pos_table", torch.from_numpy(
-            voxel_position_table(cfg.pc_feat_dim // 3)).to(dev), persistent=False)
-        self.eval()
+            voxel_position_table(cfg.pc_feat_dim // 3)).to(self.device), persistent=False)
 
     @property
     def device(self) -> torch.device:

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from situation3d_tpu_torch.device import resolve_device
+
 
 class Dense(nn.Linear):
     def __init__(self, in_features: int, out_features: int,
@@ -105,6 +107,34 @@ def init_random_weights(model: nn.Module, seed: int,
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
             elif leaf == "mean":
                 buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
+
+
+@torch.no_grad()
+def init_blip2_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
+    """Seeded random weights drawn on the model's device, in
+    ``named_parameters`` order: matrices and query tokens ``N(0, std)``,
+    norm weights 1, biases 0. For smoke runs and benchmarks."""
+    g = None
+    for name, p in model.named_parameters():
+        if g is None:
+            g = torch.Generator(device=p.device).manual_seed(seed)
+        if p.dim() >= 2:
+            p.normal_(0.0, std, generator=g)
+        elif name.rsplit(".", 1)[-1] == "bias":
+            p.zero_()
+        else:
+            p.fill_(1.0)
+
+
+def materialise(module: nn.Module, device, seed: int) -> None:
+    """Place a model built on ``meta`` on ``device`` and fill it with
+    ``init_blip2_weights(seed)``; ``device="meta"`` leaves it for the parent
+    that builds it into a larger model."""
+    dev = resolve_device(device)
+    if dev.type != "meta":
+        module.to_empty(device=dev)
+        init_blip2_weights(module, seed)
+        module.eval()
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,

@@ -7,6 +7,7 @@ Run from the repository root on a machine with one CUDA device:
     python3 -m situation3d_tpu_torch.tools.profile_forward --train frozen|unfrozen
     python3 -m situation3d_tpu_torch.tools.profile_forward --model votenet [--points 40000]
     python3 -m situation3d_tpu_torch.tools.profile_forward --model blip2
+    python3 -m situation3d_tpu_torch.tools.profile_forward --model stage1
 
 With ``--model blip2`` it times the 3D-LLM (Blip2T5 at the default widths,
 bf16 compute) at ``bench.py``'s shapes: greedy decoding of 10 tokens at
@@ -14,6 +15,12 @@ bf16 compute) at ``bench.py``'s shapes: greedy decoding of 10 tokens at
 encoder, T5 encoder and decode steps, and one frozen-T5 training step at
 B=4 split into forward + loss, backward and optimizer; it profiles one
 greedy decode and one training step.
+
+With ``--model stage1`` it profiles BLIP-2 stage 1 and the OPT zoo at the
+default widths, bf16 compute: one stage-1 ``Blip2Qformer`` optimizer step at
+``--batch`` (24 ITM rows, captions of 32), one retrieval evaluation over 32
+scenes x 32 captions (``k_test`` 16), and a ``Blip2OPT`` (OPT-2.7B) greedy
+decode of 10 tokens at ``--batch`` after prompts of up to 32 tokens.
 
 With ``--train`` it times one training step of that configuration (scene
 encoder frozen, the default, or trained too) split into forward, backward
@@ -398,6 +405,73 @@ def profile_blip2(args, card) -> dict:
     return result
 
 
+def profile_stage1(args, card) -> dict:
+    from situation3d_tpu_torch.device import tree_to_device
+    from situation3d_tpu_torch.models.blip2_opt import Blip2OPT, opt_predict_answers
+    from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
+    from situation3d_tpu_torch.models.opt import OPTConfig
+    from situation3d_tpu_torch.train.optim import make_optimizer
+    from situation3d_tpu_torch.train.tasks import RetrievalTask
+    cfg = Config()
+    qcfg, B, L, N = cfg.blip2.qformer, args.batch, 32, cfg.blip2.qformer.scene_token_capacity
+    rng = np.random.RandomState(0)
+
+    def pairs(n):
+        tm = (np.arange(L)[None] < rng.randint(4, L + 1, (n, 1))).astype(np.int32)
+        return tree_to_device({
+            "image_embeds": rng.randn(n, N, qcfg.encoder_width).astype(np.float32),
+            "image_mask": np.ones((n, N), np.int32),
+            "text_ids": (rng.randint(4, qcfg.vocab_size - 2, (n, L)) * tm).astype(np.int32),
+            "text_mask": tm}, "cuda")
+
+    model = Blip2Qformer(qcfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    opt, _ = make_optimizer(cfg.train, model)
+    batch, negatives = pairs(B), torch.Generator(device="cuda").manual_seed(1)
+    model.train()
+
+    def step():
+        out = model(batch, generator=negatives)
+        opt.discard()
+        out["loss"].backward()
+        opt.step()
+        return out["loss"].detach()
+    train = _profiled(step, args.runs)
+    task = RetrievalTask(cfg, device="cuda")
+    data = pairs(32)
+    retrieval = _profiled(lambda: task.evaluation(
+        model, data["image_embeds"], data["image_mask"], data["text_ids"],
+        data["text_mask"], [[i] for i in range(32)], list(range(32))), 2)
+    del model, opt, batch, data
+    torch.cuda.empty_cache()
+    ocfg = OPTConfig()
+    bo = Blip2OPT(qcfg, ocfg, cfg.blip2.pc_feat_dim, dtype=torch.bfloat16, device="cuda",
+                  seed=0)
+    lens = np.concatenate([[L], rng.randint(4, L + 1, B - 1)])
+    mask = (np.arange(L)[None] >= L - lens[:, None]).astype(np.int32)
+    dbatch = tree_to_device({
+        "pc_feat": rng.randn(B, N, cfg.blip2.pc_feat_dim).astype(np.float32),
+        "pc": rng.randint(0, 256, (B, N, 3)).astype(np.int32),
+        "pc_mask": np.ones((B, N), np.int32),
+        "input_ids": np.where(mask > 0, rng.randint(3, 50000, (B, L)), 1).astype(np.int32),
+        "input_mask": mask}, "cuda")
+    with torch.inference_mode():
+        decode = _profiled(lambda: opt_predict_answers(bo, dbatch, 10, eos_id=-1), args.runs)
+    for rec in (train, retrieval, decode):
+        rec["idle_share"] = round(1.0 - rec["device_busy_ms"] / rec["host_ms"], 4)
+    result = {"card": card, "mode": "stage1", "batch": B, "text_len": L, "scene_tokens": N,
+              "stage1_train_step": train,
+              "stage1_samples_per_s": round(B / train["host_ms"] * 1e3, 3),
+              "retrieval_32x32_k16": retrieval, "blip2_opt_greedy_decode_10": decode,
+              "opt_tokens_per_s": round(B * 10 / decode["host_ms"] * 1e3, 2)}
+    print(json.dumps(result))
+    if args.out:
+        import os
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "profile_stage1.json"), "w") as fh:
+            json.dump(result, fh, indent=2)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
@@ -405,7 +479,8 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--train", choices=["frozen", "unfrozen"], default=None,
                     help="profile a training step instead of the forward")
-    ap.add_argument("--model", choices=["sig3d", "votenet", "blip2"], default="sig3d")
+    ap.add_argument("--model", choices=["sig3d", "votenet", "blip2", "stage1"],
+                    default="sig3d")
     ap.add_argument("--points", type=int, default=40000,
                     help="points a scene (--model votenet)")
     args = ap.parse_args()
@@ -419,6 +494,9 @@ def main() -> int:
         return 0
     if args.model == "blip2":
         profile_blip2(args, card)
+        return 0
+    if args.model == "stage1":
+        profile_stage1(args, card)
         return 0
     cfg = apply_overrides(Config(), ["data.num_answers=706"])
     if args.train:

@@ -13,6 +13,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables, reference_paths
+
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
@@ -98,30 +100,44 @@ class CheckpointManager:
 
 def save_trainable_npz(path: str, model: torch.nn.Module,
                        trainable: Dict[str, bool]) -> int:
-    """Write only the trainable parameters to an ``.npz`` keyed by the
-    '/'-joined parameter path. Returns the number of tensors saved."""
-    flat = {n.replace(".", "/"): p.detach().float().cpu().numpy()
-            for n, p in model.named_parameters() if trainable[n]}
+    """Write only the trainable parameters to an ``.npz`` keyed by the JAX
+    package's '/'-joined tree path, in its layouts (``Dense`` kernels
+    [in, out]: ``ckpt_compat/from_jax.py:reference_paths``): the file the
+    reference writes, so either package reads it. Returns the number of
+    tensors saved."""
+    paths = reference_paths(model)
+    flat = {}
+    for n, p in model.named_parameters():
+        if trainable[n]:
+            tree_path, transpose = paths[n]
+            value = p.detach().float().cpu().numpy()
+            flat["/".join(tree_path)] = value.T if transpose else value
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **flat)
     return len(flat)
 
 
-def load_trainable_npz(path: str, model: torch.nn.Module) -> int:
-    """Merge a trainable-only ``.npz`` back over a full model (frozen weights
-    keep their values). Raises on a shape mismatch or an unmatched key."""
+def load_npz_tree(path: str) -> Dict[str, Any]:
+    """A '/'-keyed ``.npz`` as the nested tree of arrays it flattens."""
+    tree: Dict[str, Any] = {}
     with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
-    n = 0
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            new = flat.pop(name.replace(".", "/"), None)
-            if new is None:
-                continue
-            if tuple(new.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: checkpoint {new.shape} vs model {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(new).to(p.dtype))
-            n += 1
-    if flat:
-        raise KeyError(f"unmatched checkpoint keys: {sorted(flat)[:5]}")
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def load_trainable_npz(path: str, model: torch.nn.Module) -> int:
+    """Merge a trainable-only ``.npz`` (``save_trainable_npz``'s, or the
+    reference's) back over a full model (frozen weights keep their values).
+    Raises ``ValueError`` on a shape mismatch and ``KeyError`` on a key the
+    model does not hold. Returns the number of tensors merged."""
+    with np.load(path) as data:
+        n = len(data.files)
+    unused = load_jax_variables(model, load_npz_tree(path), {}, partial=True)
+    if unused:
+        raise KeyError(f"unmatched checkpoint keys: {unused[:5]}")
     return n

@@ -1,11 +1,12 @@
 """Task registry: datasets + model + trainer per task (port of
 ``situation3d_tpu/train/tasks.py``, the LAVIS task layer's replacement).
 
-Registered here: ``sqa3d`` and ``multimodal_classification`` (SIG3D), and
-the 3D-LLM's ``3d_vqa``, ``captioning``, ``dialogue`` and
-``vqa_reading_comprehension`` (Blip2T5). Stage-1 pretraining (``stage1``)
-and ``retrieval`` need the stage-1 Q-Former, which is not ported yet
-(Slice D2); ``setup_task`` raises ``NotImplementedError`` for them.
+Registered here: ``sqa3d`` and ``multimodal_classification`` (SIG3D), the
+3D-LLM's ``3d_vqa``, ``captioning``, ``dialogue`` and
+``vqa_reading_comprehension`` (Blip2T5), and ``retrieval`` (scene-text
+retrieval with the stage-1 ``Blip2Qformer``). Stage-1 pretraining
+(``cli.train --task stage1``) reads its datasets through ``3d_vqa``, as the
+reference's entry point does.
 """
 from __future__ import annotations
 
@@ -23,13 +24,14 @@ from situation3d_tpu_torch.data.sqa3d import SQA3DDataset
 from situation3d_tpu_torch.data.synthetic import make_synthetic_dataset
 from situation3d_tpu_torch.data.threedvqa import ThreeDVQADataset, synthetic_threedvqa
 from situation3d_tpu_torch.data.vocab import build_answer_vocab, load_answer_counter
+from situation3d_tpu_torch.eval.retrieval import compute_sim_matrix, retrieval_metrics
 from situation3d_tpu_torch.eval.scorers import exact_match, score_all
+from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
 from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, generate
 from situation3d_tpu_torch.models.sig3d import SIG3D, init_random_weights
 from situation3d_tpu_torch.train.trainer import Trainer
 from situation3d_tpu_torch.utils.registry import registry
 
-STAGE1_TASKS = ("stage1", "retrieval")    # need the stage-1 Q-Former (not ported yet)
 _logger = logging.getLogger("situation3d_tpu_torch")
 
 
@@ -169,6 +171,36 @@ class CaptionTask(ThreeDVQATask):
         return score_all(preds, golds)
 
 
+@registry.register_task("retrieval")
+class RetrievalTask:
+    """Scene-text retrieval with the stage-1 ``Blip2Qformer``: ITC ranking +
+    ITM rerank of the top ``k_test`` (``eval/retrieval.py``), recall@k. The
+    model lives on ``device`` (the card unless the caller asks for the
+    CPU)."""
+
+    def __init__(self, cfg: Config, synthetic: bool = False, k_test: int = 16,
+                 device="cuda"):
+        self.cfg = cfg
+        self.synthetic = synthetic
+        self.k_test = k_test
+        self.device = device
+
+    def build_model(self) -> Blip2Qformer:
+        """``Blip2Qformer`` on the task's device with seeded random weights
+        (``train.seed``)."""
+        cfg = self.cfg
+        return Blip2Qformer(cfg.blip2.qformer,
+                            dtype=torch.bfloat16 if cfg.train.bf16 else torch.float32,
+                            device=self.device, seed=cfg.train.seed)
+
+    def evaluation(self, model: Blip2Qformer, image_embeds, image_mask, text_ids,
+                   text_mask, img2txt, txt2img, rank: int = 0, world: int = 1
+                   ) -> Dict[str, float]:
+        i2t, t2i = compute_sim_matrix(model, image_embeds, image_mask, text_ids, text_mask,
+                                      k_test=self.k_test, rank=rank, world=world)
+        return retrieval_metrics(i2t, t2i, img2txt, txt2img)
+
+
 @registry.register_task("dialogue")
 class DialogueTask(ThreeDVQATask):
     """Dialogue finetuning (``lavis/tasks/dialogue.py:21-64``): validation is
@@ -228,8 +260,4 @@ class VQARCTask(ThreeDVQATask):
 
 
 def setup_task(name: str, cfg: Config, **kwargs):
-    if name in STAGE1_TASKS:
-        raise NotImplementedError(
-            f"--task {name} is not ported yet: stage-1 pretraining and retrieval "
-            "need the stage-1 Q-Former (Slice D2 of the port)")
     return registry.get_task(name)(cfg, **kwargs)

@@ -129,8 +129,10 @@ def test_cli_eval_names_what_it_cannot_read(trained, tmp_path):
         cli_eval.main([*argv, "--checkpoint", str(orbax_like)])
     with pytest.raises(FileNotFoundError):
         cli_eval.main([*argv, "--checkpoint", str(tmp_path / "nothing")])
-    with pytest.raises(NotImplementedError, match="D2"):
-        cli_train.main(["--task", "stage1", "--device", "cpu"])
+    # stage-1 pretraining is ported: it goes on to the device check
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli_train.main(["--task", "stage1"])
 
 
 def test_cli_eval_takes_a_reference_torch_checkpoint(trained, tmp_path):
@@ -222,5 +224,5 @@ def test_dialogue_and_reading_comprehension_valid_steps_match_reference(crossed)
     assert tr.after_evaluation(got, golds) == jr.after_evaluation(want, golds)
     cap = ttasks.setup_task("captioning", c["tcfg"], device="cpu")
     assert cap.cfg.blip2.prompt == "{}" and c["tcfg"].blip2.prompt != "{}"
-    with pytest.raises(NotImplementedError, match="D2"):
-        ttasks.setup_task("retrieval", c["tcfg"])
+    assert isinstance(ttasks.setup_task("retrieval", c["tcfg"], device="cpu"),
+                      ttasks.RetrievalTask)

@@ -237,15 +237,21 @@ def test_synthetic_flag_builds_the_reference_datasets():
 @pytest.mark.parametrize("name", ["3d_vqa", "stage1", "captioning", "retrieval", "dialogue",
                                   "vqa_reading_comprehension"])
 def test_3d_llm_tasks_name_the_blip2_slice(name):
-    """The 3D-LLM's generative tasks are ported (Blip2T5 on the task's
-    device); stage-1 pretraining and retrieval raise, naming Slice D2."""
-    _, tcfg = tiny_cfgs()
-    if name in ttasks.STAGE1_TASKS:
-        with pytest.raises(NotImplementedError, match="D2"):
+    """The 3D-LLM's tasks are ported, each on the task's device: the
+    generative ones (Blip2T5) and ``retrieval`` (the stage-1 Q-Former).
+    ``stage1`` is no task in either package's registry: ``cli.train --task
+    stage1`` reads the ``3d_vqa`` datasets."""
+    jcfg, tcfg = tiny_cfgs()
+    if name == "stage1":
+        with pytest.raises(KeyError, match="stage1"):
             ttasks.setup_task(name, tcfg)
-    else:
-        task = ttasks.setup_task(name, tcfg, device="cpu")
-        assert isinstance(task, ttasks.ThreeDVQATask) and task.device == "cpu"
+        with pytest.raises(KeyError, match="stage1"):
+            jtasks.setup_task(name, jcfg)
+        return
+    task = ttasks.setup_task(name, tcfg, device="cpu")
+    want = ttasks.RetrievalTask if name == "retrieval" else ttasks.ThreeDVQATask
+    assert isinstance(task, want) and task.device == "cpu"
+    assert type(jtasks.setup_task(name, jcfg)).__name__ == type(task).__name__
 
 
 def test_cli_infer_sqa3d_answers_from_the_checkpoint(trained, files, capsys):

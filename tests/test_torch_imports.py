@@ -25,7 +25,7 @@ def test_port_imports_nothing_of_jax():
     """Import every port module in a fresh interpreter and look at
     ``sys.modules``: no jax, flax, optax, orbax, transformers, yaml, nor the
     JAX package."""
-    assert len(PORT_MODULES) >= 74, PORT_MODULES
+    assert len(PORT_MODULES) >= 84, PORT_MODULES
     assert {"situation3d_tpu_torch.cli.train", "situation3d_tpu_torch.ops.cuda.gather_rows",
             "situation3d_tpu_torch.ops.cuda.fps", "situation3d_tpu_torch.ops.pointnet2",
             "situation3d_tpu_torch.ops.nn_distance",
@@ -44,7 +44,11 @@ def test_port_imports_nothing_of_jax():
                 "models.positional", "models.qformer", "models.t5", "models.blip2_t5",
                 "ckpt_compat.common", "ckpt_compat.t5", "ckpt_compat.blip2",
                 "data.threedvqa", "data.builders", "train.blip2_trainer",
-                "eval.scorers", "eval.sqa3d_scoring", "cli.score", "cli.infer"))
+                "eval.scorers", "eval.sqa3d_scoring", "cli.score", "cli.infer",
+                # BLIP-2 stage 1, retrieval and the model zoo
+                "train.contrastive", "models.blip2_qformer", "eval.retrieval",
+                "models.opt", "models.blip2_opt", "ckpt_compat.opt", "models.med",
+                "ckpt_compat.med", "models.vit", "ckpt_compat.vit", "ckpt_compat.from_jax"))
             } <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
@@ -157,10 +161,36 @@ _TINY_BLIP2 = ["blip2.t5.vocab_size=32", "blip2.t5.d_model=16", "blip2.t5.d_kv=4
                "blip2.qformer.intermediate_size=16", "blip2.qformer.encoder_width=24",
                "blip2.pc_feat_dim=24"]
 
+def _zoo(module, name):
+    return getattr(__import__(f"situation3d_tpu_torch.models.{module}", fromlist=["x"]), name)
+
+
+_TINY_OPT = dict(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, ffn_dim=16,
+                 max_position=16)
+_TINY_MED = dict(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2,
+                 intermediate_size=16, max_position_embeddings=16, encoder_width=8)
+_TINY_VIT = dict(img_size=14, patch_size=7, embed_dim=8, depth=1, num_heads=2)
+
 ENTRY_POINTS = {
     "Blip2T5": lambda kw: __import__(
         "situation3d_tpu_torch.models.blip2_t5", fromlist=["x"]).Blip2T5(
             _tiny(_TINY_BLIP2).blip2, **kw),
+    "Blip2Qformer": lambda kw: _zoo("blip2_qformer", "Blip2Qformer")(
+        _tiny(_TINY_BLIP2).blip2.qformer, embed_dim=8, **kw),
+    "Blip2ITM": lambda kw: _zoo("blip2_qformer", "Blip2ITM")(
+        _tiny(_TINY_BLIP2).blip2.qformer, embed_dim=8, **kw),
+    "Blip2OPT": lambda kw: _zoo("blip2_opt", "Blip2OPT")(
+        _tiny(_TINY_BLIP2).blip2.qformer, _zoo("opt", "OPTConfig")(**_TINY_OPT),
+        pc_feat_dim=24, **kw),
+    "OPTForCausalLM": lambda kw: _zoo("opt", "OPTForCausalLM")(
+        _zoo("opt", "OPTConfig")(**_TINY_OPT), **kw),
+    "MedBertModel": lambda kw: _zoo("med", "MedBertModel")(
+        _zoo("med", "MedConfig")(**_TINY_MED), **kw),
+    "MedBertLMHeadModel": lambda kw: _zoo("med", "MedBertLMHeadModel")(
+        _zoo("med", "MedConfig")(**_TINY_MED), **kw),
+    "EvaViT": lambda kw: _zoo("vit", "EvaViT")(_zoo("vit", "ViTConfig")(**_TINY_VIT), **kw),
+    "ClipViT": lambda kw: _zoo("vit", "ClipViT")(
+        _zoo("vit", "ViTConfig")(model_name="clip_L", **_TINY_VIT), **kw),
     "SIG3D": lambda kw: __import__(
         "situation3d_tpu_torch.models.sig3d", fromlist=["SIG3D"]).SIG3D(_tiny(), 5, **kw),
     "build_unet_plan": lambda kw: __import__(
@@ -192,7 +222,7 @@ def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name):
     assert ENTRY_POINTS[name]({"device": "cpu"}) is not None
 
 
-@pytest.mark.parametrize("name", ["Trainer", "cli.train", "cli.eval"])
+@pytest.mark.parametrize("name", ["Trainer", "cli.train", "cli.eval", "cli.train stage1"])
 def test_training_entry_point_defaults_to_cuda_and_raises_without_a_card(name, tmp_path):
     """The trainer runs where its model lives and the model defaults to the
     card; the command lines ask for the card unless told ``--device cpu``."""
@@ -209,9 +239,13 @@ def test_training_entry_point_defaults_to_cuda_and_raises_without_a_card(name, t
         if name == "Trainer":
             cfg = _tiny(dirs)
             return Trainer(cfg, ENTRY_POINTS["SIG3D"](kw), steps_per_epoch=10)
-        argv = ["--synthetic", "--output", str(tmp_path / "run"),
-                "--options", *_TINY, "train.batch_size=1", *synthetic, *dirs]
-        argv += [x for k, v in kw.items() for x in (f"--{k}", v)]
+        argv = [x for k, v in kw.items() for x in (f"--{k}", v)]
+        argv += ["--synthetic", "--output", str(tmp_path / "run"),
+                 "--options", *_TINY, "train.batch_size=1", *synthetic, *dirs]
+        if name == "cli.train stage1":
+            argv = ["--task", "stage1", "--max-steps", "1", *argv, *_TINY_BLIP2,
+                    "blip2.qformer.vocab_size=64", "blip2.qformer.scene_token_capacity=64"]
+            return cli_train.main(argv)["tensors"] > 0
         if name == "cli.eval":
             return cli_eval.main(argv)["num_questions"] == 8
         cli_train.main(["--max-steps", "1", *argv])

@@ -343,7 +343,10 @@ def test_trainable_npz_round_trip(tmp_path):
                                 toptim.sig3d_trainable_mask(cfg, a))
     path = str(tmp_path / "sub" / "trainable.npz")
     n = tckpt.save_trainable_npz(path, a, mask)
-    assert n == sum(mask.values()) and "answer_cls_fc2/weight" in np.load(path).files
+    assert n == sum(mask.values())
+    with np.load(path) as f:      # the reference's tree paths and [in, out] kernels
+        np.testing.assert_array_equal(f["answer_cls_fc2/kernel"],
+                                      a.answer_cls_fc2.weight.detach().numpy().T)
     b = SIG3D(cfg, 12, device="cpu")
     init_random_weights(b, 2)
     frozen_before = b.scene_encoder.conv0p1s1.kernel.detach().clone()

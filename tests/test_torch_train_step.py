@@ -321,14 +321,10 @@ def test_cli_train_synthetic_runs_on_the_cpu(tmp_path):
     ("eval", ["--task", "3d_vqa"], "3d_vqa"),
 ])
 def test_cli_train_names_what_is_not_ported(cli, argv, word):
-    """Stage-1 pretraining waits for the stage-1 Q-Former (Slice D2) and says
-    so; the 3D-LLM's ``3d_vqa`` is ported: both entry points take it and go on
-    to the device check, which raises where no card is present."""
+    """The 3D-LLM's ``3d_vqa`` and its stage-1 pretraining are ported: the
+    entry points take them and go on to the device check, which raises where
+    no card is present."""
     from situation3d_tpu_torch.cli import eval as cli_eval
     main = {"train": cli_train, "eval": cli_eval}[cli].main
-    if word == "stage1":
-        with pytest.raises(NotImplementedError, match="stage1.*D2"):
-            main(argv)
-    else:
-        with pytest.raises(RuntimeError, match="cuda"):
-            main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(argv)
