@@ -19,7 +19,10 @@ float32 model held against the CPU), and BLIP-2 stage 1 with the model zoo
 stage1`` on 3D-VQA files, scene-text retrieval through the ``retrieval``
 task, ``Blip2OPT`` at OPT-2.7B decoding and its training loss, MED at
 bert-base, EVA-CLIP-g and CLIP-L forwards, small float32 models held against
-the CPU) — and checks what comes out.
+the CPU), and data parallelism (``ddp``: two ranks sharing the card under
+gloo, SIG3D and stage-1 steps held bit-equal across the ranks and against one
+process; ``cli.train --task stage1`` under ``torch.distributed.run`` with
+NCCL against plain ``cli.train``) — and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA device, ``nvcc`` and no network. Exits non-zero when any phase
@@ -30,7 +33,8 @@ JSON line per phase, the card's name and power limit, one JSON object
 
 ``--only device,kernels`` runs a subset of the phases (a first check of a
 changed kernel; ``--only blip2`` the 3D-LLM alone, ``--only blip2_stage1``
-stage 1, retrieval and the model zoo); the contract lines are
+stage 1, retrieval and the model zoo, ``--only device,ddp`` data
+parallelism); the contract lines are
 printed only by a full run. The
 ``kernels`` phase holds ``fused_sparse_conv`` to its plain version at every
 conv class of the encoder (the SIG3D forward's total), of the decoder and of
@@ -206,18 +210,21 @@ def full_width_cfg() -> Config:
     return apply_overrides(Config(), FULL_WIDTH)
 
 
+SMALL_WIDTH = [
+    "lang.num_layers=2", "lang.hidden_size=64", "lang.num_heads=4",
+    "lang.intermediate_size=128", "model.hidden_size=64",
+    "model.mcan_num_heads=4", "model.mcan_num_layers=1",
+    "model.mcan_flat_mlp_size=32", "model.mcan_flat_out_size=48",
+    "model.num_scene_tokens=32", "model.scene_feat_dim=48",
+    "sparse.planes=8,16,24,48,24,24,16,16", "sparse.init_dim=8",
+    "sparse.bottleneck_channels=48",
+    "sparse.capacities=4096,2048,1024,512,256", "data.voxel_size=0.08",
+    "sparse.grid_extent=(128,128,64)", "data.num_answers=12",
+    "data.max_text_len=24"]
+
+
 def small_cfg() -> Config:
-    return apply_overrides(Config(), [
-        "lang.num_layers=2", "lang.hidden_size=64", "lang.num_heads=4",
-        "lang.intermediate_size=128", "model.hidden_size=64",
-        "model.mcan_num_heads=4", "model.mcan_num_layers=1",
-        "model.mcan_flat_mlp_size=32", "model.mcan_flat_out_size=48",
-        "model.num_scene_tokens=32", "model.scene_feat_dim=48",
-        "sparse.planes=8,16,24,48,24,24,16,16", "sparse.init_dim=8",
-        "sparse.bottleneck_channels=48",
-        "sparse.capacities=4096,2048,1024,512,256", "data.voxel_size=0.08",
-        "sparse.grid_extent=(128,128,64)", "data.num_answers=12",
-        "data.max_text_len=24"])
+    return apply_overrides(Config(), SMALL_WIDTH)
 
 
 # ---------------------------------------------------------------------------
@@ -2538,11 +2545,351 @@ def phase_blip2_stage1(work: str) -> None:
     emit("blip2_stage1", seconds=round(time.perf_counter() - t0, 2))
 
 
+# ---------------------------------------------------------------------------
+# ddp: data parallelism across processes (parallel/mesh.py, parallel/collectives.py)
+
+DDP_WORLD, DDP_STEPS = 2, 3
+DDP_TIMEOUT = 600      # seconds for the two ranks, start-up included
+DDP_G_MIN = 1e-2       # Adam's first update is lr*g/(|g|+eps): updates are held where |g| >= this
+# What world 2 is held to against one process on the same card:
+# - loss: the global loss, relative;
+# - grad_l2: the first step's averaged gradient, L2 error a tensor over its norm (or 1% of
+#   the largest tensor's norm), the worst tensor: where a wrong reduction shows;
+# - update: the three-step update where every gradient was >= DDP_G_MIN, largest error over
+#   the tensor's largest update. Adam normalizes each element's step, so an element's
+#   rounding shows relative to its update;
+# - update_in_lr: the largest error anywhere, in learning rates. An element whose gradient
+#   is rounding noise can move either way; three AdamW steps move an element by at most
+#   1.0036 lr each, so two runs part by at most ~6.02 lr.
+DDP_TOL = {
+    # float32 products (tf32 off): the row split changes only the order of the sums
+    "small_sig3d": {"loss": 1e-5, "grad_l2": 1e-5, "update": 1e-3, "update_in_lr": 2.0},
+    # bf16 products round to 2^-8 and splitting the batch changes the GEMM shapes, so the
+    # gradients take other roundings (~1e-2); Adam then takes the elements whose gradient
+    # is that noise a full step either way: only Adam's own bound holds elementwise
+    "sig3d": {"loss": 1e-4, "grad_l2": 3e-2, "update": None, "update_in_lr": 6.1},
+    # float32, as the reference's stage 1
+    "stage1": {"loss": 1e-5, "grad_l2": 1e-4, "update": 1e-3, "update_in_lr": 2.0},
+}
+
+
+def _ddp_specs() -> dict:
+    """What each case runs (picklable: the ranks rebuild it)."""
+    return {"small_sig3d": {"kind": "sig3d", "options": [*SMALL_WIDTH, "train.frozen_prefixes="],
+                            "dtype": "float32", "batch": BATCH},
+            "sig3d": {"kind": "sig3d", "options": [*FULL_WIDTH, "train.frozen_prefixes="],
+                      "dtype": "bfloat16", "batch": BATCH},
+            "stage1": {"kind": "stage1", "options": list(S1_WIDTH), "dtype": "float32",
+                       "batch": S1_BATCH, "text": S1_TEXT}}
+
+
+def _ddp_case(spec, mesh, dev):
+    """(model, optimizer, one step on the global batch -> the global loss)."""
+    from situation3d_tpu_torch.parallel import collectives
+    from situation3d_tpu_torch.parallel.mesh import shard_batch, sharded
+    cfg = apply_overrides(Config(), spec["options"])
+    B = spec["batch"]
+    rows = (lambda b: b) if mesh is None else (lambda b: shard_batch(b, mesh))
+    if spec["kind"] == "sig3d":
+        model = SIG3D(cfg, cfg.data.num_answers, dtype=getattr(torch, spec["dtype"]), device=dev)
+        init_random_weights(model, SEED)
+        state = create_train_state(cfg, model, steps_per_epoch=1000, seed=SEED)
+        batch = {k: v.numpy() for k, v in make_scene_batch(
+            cfg, B, np.random.RandomState(SEED), device="cpu")[0].items()}
+        return model, state.optimizer, lambda: collectives.pmean(
+            train_step(cfg, state, rows(batch), mesh)["loss"].float())
+    qcfg = cfg.blip2.qformer
+    model = Blip2Qformer(qcfg, dtype=torch.float32, device=dev, seed=SEED)
+    opt, _ = make_optimizer(cfg.train, model)
+    rng = np.random.RandomState(SEED + 80)
+    L = spec["text"]
+    tm = (np.arange(L)[None] < rng.randint(4, L + 1, (B, 1))).astype(np.int32)
+    batch = {"image_embeds": rng.randn(B, qcfg.scene_token_capacity,
+                                       qcfg.encoder_width).astype(np.float32),
+             "image_mask": np.ones((B, qcfg.scene_token_capacity), np.int32),
+             "text_ids": (rng.randint(4, qcfg.vocab_size - 2, (B, L)) * tm).astype(np.int32),
+             "text_mask": tm}
+    negatives = sharded(torch.Generator(device=dev).manual_seed(SEED + 2), mesh)
+    axis = mesh.data_axis if mesh is not None else None
+    model.train()
+
+    def step():
+        out = model(rows(batch), negatives_axis=axis, generator=negatives)
+        opt.discard()
+        out["loss"].backward()
+        collectives.pmean_grads(model.parameters())
+        opt.step()
+        return collectives.pmean(out["loss"].detach())
+    return model, opt, step
+
+
+def _ranks_bit_equal(params) -> bool:
+    """Every rank holds bit for bit the same float32 ``params``: on every
+    rank each element's bit pattern equals its minimum over the ranks."""
+    from situation3d_tpu_torch.parallel import collectives
+    bits = torch.cat([p.detach().reshape(-1) for p in params]).view(torch.int32)
+    same = torch.equal(collectives.pmin(bits), bits)
+    return bool(collectives.pmin(torch.tensor(float(same))) == 1.0)
+
+
+def _ddp_run(name, spec, mesh, work, device) -> dict:
+    """``DDP_STEPS`` steps of one case. One process (``mesh`` None): saves the
+    first step's gradients, the masks of the elements whose every gradient
+    is at least ``DDP_G_MIN``, the three-step updates and the losses as the
+    reference. A rank: checks the ranks bit-equal after every step, times
+    the gradient all-reduce, and rank 0 holds its gradients, updates and
+    losses against the reference."""
+    import os
+    from situation3d_tpu_torch.parallel import collectives
+    dev = torch.device(device) if mesh is None else mesh.device
+    cuda = dev.type == "cuda"
+    model, opt, step = _ddp_case(spec, mesh, dev)
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    start = {n: p.detach().clone() for n, p in trainable}
+    masks, first, losses = {}, {}, []
+    apply = opt.step
+
+    def recording():                   # the gradients the update is handed
+        for n, p in trainable:
+            if p.grad is not None:
+                if not losses:
+                    first[n] = p.grad.detach().clone()
+                big = p.grad.abs() >= DDP_G_MIN
+                masks[n] = big if n not in masks else masks[n] & big
+        return apply()
+    opt.step = recording
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    secs, equal = [], []
+    for _ in range(DDP_STEPS):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = float(step())
+        if cuda:
+            torch.cuda.synchronize(dev)
+        secs.append(round(time.perf_counter() - t0, 4))
+        losses.append(loss)
+        if mesh is not None:
+            equal.append(_ranks_bit_equal([p for _, p in trainable]))
+    rec = {"losses": losses, "step_s": secs, "trainable_tensors": len(trainable),
+           "peak_gb": round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2) if cuda else None}
+    path = os.path.join(work, f"ddp_{name}.pt")
+    if mesh is None:
+        torch.save({"losses": losses, "masks": {n: m.cpu() for n, m in masks.items()},
+                    "grads": {n: g.cpu() for n, g in first.items()},
+                    "updates": {n: (p.detach() - start[n]).cpu() for n, p in trainable}}, path)
+        return rec
+    rec["ranks_bit_equal_after_each_step"] = equal
+    params = [p for _, p in trainable]
+    for p in params:                   # a step's gradient all-reduce, timed alone
+        p.grad = torch.zeros_like(p)
+    ms = []
+    for _ in range(2):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        collectives.pmean_grads(params)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        ms.append(round(1e3 * (time.perf_counter() - t0), 2))
+    rec["allreduce_ms"] = ms
+    rec["allreduce_mb"] = round(sum(p.numel() * 4 for p in params) / 2 ** 20, 1)
+    if mesh.rank == 0:
+        rec.update(_ddp_against_one_process(torch.load(path, weights_only=False), trainable,
+                                            start, first, losses,
+                                            apply_overrides(Config(), spec["options"]).train.lr,
+                                            dev))
+    return rec
+
+
+def _ddp_against_one_process(ref, trainable, start, first, losses, lr, dev) -> dict:
+    """Rank 0's run against one process's: the losses (relative), the first
+    step's averaged gradient (L2 error a tensor over its norm or 1% of the
+    largest tensor's, the worst), the
+    three-step update where every gradient was at least ``DDP_G_MIN``
+    (largest error over the tensor's largest update, the worst tensor) and
+    everywhere (largest error, in units of the learning rate)."""
+    out = {"loss_rel_err": [abs(a - b) / max(abs(b), 1e-30)
+                            for a, b in zip(losses, ref["losses"])]}
+    if set(first) != set(ref["grads"]):
+        fail(f"ddp: other tensors got a gradient: {sorted(set(first) ^ set(ref['grads']))[:4]}")
+    # a tensor whose gradient nearly cancels (a bias before a norm) is held to the
+    # rounding of the larger ones: the floor is 1% of the largest tensor's norm
+    norms = {n: float(g.norm()) for n, g in ref["grads"].items()}
+    floor = 1e-2 * max(norms.values(), default=0.0)
+    grad = max(((float((first[n] - g.to(dev)).norm()) / max(norms[n], floor, 1e-30), n)
+                for n, g in ref["grads"].items()), default=(0.0, ""))
+    upd, anywhere, held = (0.0, ""), 0.0, 0
+    for n, p in trainable:
+        want = ref["updates"][n].to(dev)
+        err = (p.detach() - start[n] - want).abs()
+        anywhere = max(anywhere, float(err.max()) / lr)
+        if n in ref["masks"]:          # no gradient at all: weight decay alone, whole
+            m = ref["masks"][n].to(dev)
+            if not bool(m.any()):
+                continue
+            err = err[m]
+        held += 1
+        upd = max(upd, (float(err.max()) / max(float(want.abs().max()), 1e-30), n))
+    shares = [(int(m.sum()), m.numel()) for m in ref["masks"].values()]
+    return {**out, "grad_rel_l2": grad[0], "grad_worst_tensor": grad[1],
+            "update_rel_err": upd[0], "update_worst_tensor": upd[1],
+            "update_max_abs_err_in_lr": anywhere, "tensors_held": held,
+            "masked_share": round(sum(a for a, _ in shares) / max(sum(b for _, b in shares), 1), 4)}
+
+
+def _ddp_rank(rank, port, work, specs, device) -> None:
+    """One rank of the world-2 run: every case, a report to ``work``. Both
+    ranks take ``device`` (index 0 of a card)."""
+    import os
+    from situation3d_tpu_torch.config import MeshConfig
+    from situation3d_tpu_torch.parallel import collectives
+    from situation3d_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    collectives.initialize_multihost(f"127.0.0.1:{port}", DDP_WORLD, rank, backend="gloo",
+                                     device=dev)
+    try:
+        mesh = make_mesh(MeshConfig(), dev)
+        report = {}
+        for name, spec in specs.items():
+            report[name] = _ddp_run(name, spec, mesh, work, device)
+            _release()
+        with open(os.path.join(work, f"ddp_rank{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ddp_world2(work, specs) -> list:
+    """Two ranks on the one card under gloo, spawned; a rank that raises
+    fails the phase, one that hangs fails it at ``DDP_TIMEOUT``."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(_ddp_rank, args=(_free_port(), work, specs, DEV), nprocs=DDP_WORLD,
+                              join=False, start_method="spawn")
+    deadline = time.perf_counter() + DDP_TIMEOUT
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"ddp: the ranks did not finish within {DDP_TIMEOUT} s")
+    reports = []
+    for r in range(DDP_WORLD):
+        with open(f"{work}/ddp_rank{r}.json") as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def _ddp_nccl_world1(work) -> dict:
+    """``cli.train --task stage1`` on 3D-VQA files, plain and under
+    ``torch.distributed.run --nproc-per-node 1`` (NCCL), each in a fresh
+    process: the ``.npz`` files bit-equal, or, where the card does not
+    repeat a run bit for bit, the NCCL run within two plain runs' spread."""
+    import os
+    ds_cfg, _, _ = write_3dvqa_files(os.path.join(work, "data"),
+                                     apply_overrides(Config(), S1_WIDTH).blip2.qformer
+                                     .encoder_width)
+
+    def argv(name):
+        return ["--task", "stage1", "--dataset-config", ds_cfg, "--max-steps", str(S1_STEPS),
+                "--device", DEV, "--output", f"{work}/{name}/run", "--options", *S1_WIDTH,
+                f"train.batch_size={S1_BATCH}", f"train.epochs={S1_STEPS}",
+                "train.log_every_steps=1", f"log.log_dir={work}/{name}/logs",
+                f"train.ckpt_dir={work}/{name}/ckpt"]
+
+    def npz(name):
+        with np.load(f"{work}/{name}/run/stage1_qformer.npz") as z:
+            return {k: z[k] for k in z.files}
+
+    def max_diff(a, b):
+        return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in b)
+
+    here = os.path.dirname(os.path.abspath(__file__))          # where the package is
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}   # torch.distributed.run's default
+
+    def run(name, launcher):
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", *launcher, "situation3d_tpu_torch.cli.train",
+                               *argv(name)], capture_output=True, text=True, timeout=600,
+                              cwd=here, env=env)
+        if done.returncode != 0:
+            fail(f"ddp: cli.train stage1 ({' '.join(launcher)}) failed:\n"
+                 f"{done.stdout[-2000:]}\n{done.stderr[-3000:]}")
+        return round(time.perf_counter() - t0, 2)
+
+    torchrun = ["torch.distributed.run", "--nnodes", "1", "--nproc-per-node", "1",
+                "--master-addr", "127.0.0.1", "--master-port", str(_free_port()), "-m"]
+    plain_s, nccl_s = run("plain", []), run("nccl", torchrun)
+    plain, nccl = npz("plain"), npz("nccl")
+    if plain.keys() != nccl.keys():
+        fail(f"ddp: the NCCL run's .npz holds other tensors: {sorted(set(plain) ^ set(nccl))}")
+    rec = {"tensors": len(plain), "plain_s_with_start_up": plain_s,
+           "torchrun_s_with_start_up": nccl_s,
+           "nccl_vs_plain_max_abs": max_diff(nccl, plain)}
+    rec["bit_equal"] = rec["nccl_vs_plain_max_abs"] == 0.0
+    if not rec["bit_equal"]:
+        run("plain2", [])
+        rec["plain_vs_plain_max_abs"] = max_diff(npz("plain2"), plain)
+        if rec["nccl_vs_plain_max_abs"] > rec["plain_vs_plain_max_abs"]:
+            fail(f"ddp: the NCCL world-1 run differs from plain cli.train by more than two "
+                 f"plain runs differ: {rec}")
+    return rec
+
+
+def phase_ddp(work: str, card: str) -> None:
+    """World 2 on the one card (gloo; two ranks share it, so no number here
+    is scaling): an f32 small SIG3D, the full-width bf16 SIG3D with its
+    scene encoder trained, and the full-width f32 stage-1 Q-Former, each 3
+    steps on a global batch of 8, the ranks bit-equal after every step and
+    within ``DDP_TOL`` of one process on the same card; then world 1 under
+    NCCL through ``torch.distributed.run`` against plain ``cli.train``."""
+    t0 = time.perf_counter()
+    specs = _ddp_specs()
+    world1 = {}
+    for name, spec in specs.items():
+        world1[name] = _ddp_run(name, spec, None, work, DEV)
+        _release()
+    ranks = _ddp_world2(work, specs)
+    for name in specs:
+        emit("ddp_case", name=name, card=card, world1=world1[name], world2_rank0=ranks[0][name],
+             world2_rank1_peak_gb=ranks[1][name]["peak_gb"], tolerance=DDP_TOL[name])
+    for name in specs:
+        r0, r1, tol = ranks[0][name], ranks[1][name], DDP_TOL[name]
+        if not (all(r0["ranks_bit_equal_after_each_step"])
+                and all(r1["ranks_bit_equal_after_each_step"])):
+            fail(f"ddp {name}: the ranks' parameters differ after a step")
+        if not all(np.isfinite(r0["losses"])) or r0["losses"] != r1["losses"]:
+            fail(f"ddp {name}: losses {r0['losses']} / {r1['losses']}")
+        if max(r0["loss_rel_err"]) > tol["loss"] or r0["grad_rel_l2"] > tol["grad_l2"] \
+                or (tol["update"] is not None and r0["update_rel_err"] > tol["update"]) \
+                or r0["tensors_held"] < 1 \
+                or r0["update_max_abs_err_in_lr"] > tol["update_in_lr"]:
+            fail(f"ddp {name}: world 2 differs from one process beyond {tol}")
+    nccl = _ddp_nccl_world1(work)
+    emit("ddp", card=card, note="world 2: two ranks share ONE card under gloo, so its "
+         "times are not scaling; the all-reduce stages through the host",
+         step_s={n: {"world1": world1[n]["step_s"], "world2_rank0": ranks[0][n]["step_s"]}
+                 for n in specs},
+         allreduce_ms={n: ranks[0][n]["allreduce_ms"] for n in specs},
+         peak_gb={n: {"world1": world1[n]["peak_gb"],
+                      "world2": [ranks[r][n]["peak_gb"] for r in range(DDP_WORLD)]}
+                  for n in specs},
+         nccl_world1=nccl, seconds=round(time.perf_counter() - t0, 2))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
                     "device,kernels,forward,train,serving,minkunet,detection,sqa3d,"
-                    "blip2,blip2_stage1,reference")
+                    "blip2,blip2_stage1,ddp,reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2551,7 +2898,7 @@ def main() -> int:
         return 1
     phases = [p for p in args.only.split(",") if p] or \
         ["device", "kernels", "forward", "train", "serving", "minkunet", "detection",
-         "sqa3d", "blip2", "blip2_stage1", "reference"]
+         "sqa3d", "blip2", "blip2_stage1", "ddp", "reference"]
     full_run = not args.only
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
@@ -2583,6 +2930,9 @@ def main() -> int:
     if "blip2_stage1" in phases:
         with tempfile.TemporaryDirectory() as work:
             phase_blip2_stage1(work)
+    if "ddp" in phases:
+        with tempfile.TemporaryDirectory() as work:
+            phase_ddp(work, info["card"])
     if "reference" in phases:
         phase_reference()
         phase_reference_detection()

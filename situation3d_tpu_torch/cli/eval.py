@@ -12,8 +12,12 @@ Usage:
 ``--checkpoint`` restores the latest step of ``train.ckpt_dir``, as the
 reference does: the flag's value is not read. Writes ``metrics.json`` (and
 with ``--visualize`` PLY / OBJ / PNG files) under ``--output``. Runs on the
-card; ``--device cpu`` asks for the CPU. ``--task 3d_vqa`` comes with the
-BLIP-2 slice of the port and raises ``NotImplementedError``.
+card; ``--device cpu`` asks for the CPU. ``--task 3d_vqa`` evaluates the
+3D-LLM (greedy answers, scored).
+
+Under ``torchrun`` each rank answers its rows of every ``eval.batch_size``
+batch (the number of ranks must divide it) and rank 0 writes the scores;
+the scene-cache and segmentation passes run whole on every rank.
 """
 from __future__ import annotations
 
@@ -34,7 +38,6 @@ from situation3d_tpu_torch.data.builders import build_datasets_from_yaml
 from situation3d_tpu_torch.data.sqa3d import SQA3DDataset, batch_iterator
 from situation3d_tpu_torch.data.synthetic import make_synthetic_dataset
 from situation3d_tpu_torch.data.threedvqa import eval_batches, gold_answers
-from situation3d_tpu_torch.device import resolve_device
 from situation3d_tpu_torch.eval.segmentation import (confusion_matrix,
                                                      miou_from_confusion)
 from situation3d_tpu_torch.eval.serving import SceneCache
@@ -42,6 +45,8 @@ from situation3d_tpu_torch.eval.sqa3d_scoring import score_results
 from situation3d_tpu_torch.eval.visualization import (export_scene_visualization,
                                                       render_topdown)
 from situation3d_tpu_torch.models.sig3d import SIG3D, init_random_weights
+from situation3d_tpu_torch.parallel import collectives
+from situation3d_tpu_torch.parallel.mesh import batch_sharding, make_mesh
 from situation3d_tpu_torch.train.blip2_trainer import evaluate_generation, restore_trainable
 from situation3d_tpu_torch.train.checkpoint import CheckpointManager, load_trainable_npz
 from situation3d_tpu_torch.train.logging import MetricWriter
@@ -172,6 +177,8 @@ def visualize(cfg, task, ds, trainer, output, logger) -> None:
                                                  shuffle=False)))
     gen = torch.Generator(device=trainer.model.device).manual_seed(0)
     _, keep = trainer.eval_step(batch, gen)
+    if trainer.mesh.rank != 0:
+        return
     aux = keep["aux_scores"].float().cpu().numpy()
     writer = MetricWriter(output, cfg.log.use_wandb, cfg.log.use_tensorboard,
                           cfg.log.project)
@@ -227,7 +234,7 @@ def restore_blip2_params(cfg, model, args, logger):
     return None
 
 
-def eval_3dllm(args, cfg, task, device, logger) -> dict:
+def eval_3dllm(args, cfg, task, mesh, logger) -> dict:
     """Greedy answers over the split, scored; returns ``{"step", "scores",
     "num_questions", "eval_seconds"}`` (generation alone, host clock)."""
     if args.dataset_config:
@@ -239,34 +246,25 @@ def eval_3dllm(args, cfg, task, device, logger) -> dict:
     step = restore_blip2_params(cfg, model, args, logger)
     t0 = time.perf_counter()
     preds = evaluate_generation(cfg, model, eval_batches(ds, cfg.eval.batch_size),
-                                ds.text.decode, output_dir=args.output)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+                                ds.text.decode, output_dir=args.output, mesh=mesh)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
     eval_seconds = time.perf_counter() - t0
     golds, questions = gold_answers(ds)
     scores = score_results({str(k): v for k, v in preds.items()},
                            {str(k): v for k, v in golds.items()},
                            {str(k): v for k, v in questions.items()})
     logger.info("scores: %s", json.dumps(scores, indent=2))
-    with open(os.path.join(args.output, "scores.json"), "w") as fh:
-        json.dump(scores, fh, indent=2)
+    if mesh.rank == 0:
+        with open(os.path.join(args.output, "scores.json"), "w") as fh:
+            json.dump(scores, fh, indent=2)
     return {"step": step, "scores": scores, "num_questions": len(ds),
             "eval_seconds": eval_seconds}
 
 
-def main(argv=None) -> dict:
-    """Returns ``{"step": restored step, "metrics": ..., "num_questions": ...,
-    "eval_seconds": ...}`` (the QA evaluation alone, host clock); for
-    ``3d_vqa`` ``scores`` in place of ``metrics``."""
-    args = parse_args(argv)
-    cfg = load_config(args.config, args.options)
-    task = setup_task(args.task, cfg, synthetic=args.synthetic, device=args.device)
-    device = resolve_device(args.device)
-    logger = setup_logger()
-    set_seed(cfg.train.seed)
-    os.makedirs(args.output, exist_ok=True)
-    if args.task == "3d_vqa":
-        return eval_3dllm(args, cfg, task, device, logger)
+def eval_sig3d(args, cfg, task, mesh, logger) -> dict:
+    """QA accuracy and situation metrics over the split (optionally through
+    the scene cache), segmentation and visualization on request."""
     datasets = task.build_datasets()
     ds = datasets.get(args.split, datasets["val"])
 
@@ -287,8 +285,8 @@ def main(argv=None) -> dict:
         metrics = trainer.evaluate(
             task.clean_batch(b) for b in batch_iterator(
                 ds, cfg.eval.batch_size, shuffle=False, drop_last=False))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
     eval_seconds = time.perf_counter() - t0
     logger.info("eval[%s]: %d questions in %.3f s: %s", args.split, len(ds),
                 eval_seconds, metrics)
@@ -308,14 +306,33 @@ def main(argv=None) -> dict:
             r = np.random.RandomState(0).randn(20, cfg.sparse.out_channels)
             tf = r / np.linalg.norm(r, axis=1, keepdims=True)
         seg = run_segmentation_eval(cfg, trainer.model, seg_ds, cfg.eval.batch_size,
-                                    tf, num_answers=len(ds.vocab), device=device)
+                                    tf, num_answers=len(ds.vocab), device=mesh.device)
         logger.info("segmentation: mIoU=%.4f acc=%.4f", seg["seg_mIoU"],
                     seg["seg_accuracy"])
         metrics.update(seg)
-    with open(os.path.join(args.output, "metrics.json"), "w") as fh:
-        json.dump({k: float(v) for k, v in metrics.items()}, fh, indent=2)
+    if mesh.rank == 0:
+        with open(os.path.join(args.output, "metrics.json"), "w") as fh:
+            json.dump({k: float(v) for k, v in metrics.items()}, fh, indent=2)
     return {"step": trainer.state.step, "metrics": metrics,
             "num_questions": len(ds), "eval_seconds": eval_seconds}
+
+
+def main(argv=None) -> dict:
+    """Returns ``{"step": restored step, "metrics": ..., "num_questions": ...,
+    "eval_seconds": ...}`` (the QA evaluation alone, host clock); for
+    ``3d_vqa`` ``scores`` in place of ``metrics``."""
+    args = parse_args(argv)
+    cfg = load_config(args.config, args.options)
+    with collectives.launched(args.device):
+        mesh = make_mesh(cfg.mesh, args.device)
+        batch_sharding(mesh, cfg.eval.batch_size)      # the ranks split every batch
+        task = setup_task(args.task, cfg, synthetic=args.synthetic, device=mesh.device)
+        logger = setup_logger()
+        set_seed(cfg.train.seed)
+        os.makedirs(args.output, exist_ok=True)
+        if args.task == "3d_vqa":
+            return eval_3dllm(args, cfg, task, mesh, logger)
+        return eval_sig3d(args, cfg, task, mesh, logger)
 
 
 if __name__ == "__main__":

@@ -32,6 +32,16 @@ pairs (``data/threedvqa.py:stage1_batches``), one fresh negative draw a
 step, and writes every parameter to ``{output}/stage1_qformer.npz`` keyed by
 the reference's tree paths. Runs on the card; ``--device cpu`` asks for the
 CPU.
+
+Data parallelism: under ``torchrun`` (which sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``) the entry point brings up a process group (NCCL on the card,
+gloo with ``--device cpu``) and each rank takes ``cuda:{LOCAL_RANK}``:
+  torchrun --nproc-per-node 8 -m situation3d_tpu_torch.cli.train --task 3d_vqa \
+      --dataset-config 3dvqa.yaml --options train.batch_size=32
+``train.batch_size`` stays the global batch (the number of ranks must
+divide it); every rank reads the same global batches and trains on its rows,
+and the update equals the one-process update on that global batch. Rank 0
+writes the files.
 """
 from __future__ import annotations
 
@@ -46,8 +56,10 @@ from situation3d_tpu_torch.data.builders import build_datasets_from_yaml
 from situation3d_tpu_torch.data.sqa3d import batch_iterator
 from situation3d_tpu_torch.data.threedvqa import (eval_batches, gold_answers,
                                                   stage1_batches, train_batches)
-from situation3d_tpu_torch.device import resolve_device
 from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
+from situation3d_tpu_torch.parallel import collectives
+from situation3d_tpu_torch.parallel.mesh import (batch_sharding, make_mesh, replicated,
+                                                 shard_batch, sharded)
 from situation3d_tpu_torch.train.blip2_trainer import Blip2Trainer
 from situation3d_tpu_torch.train.checkpoint import save_trainable_npz
 from situation3d_tpu_torch.train.logging import MetricWriter
@@ -79,20 +91,21 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def train_sig3d(args, cfg, task, device, logger, log_fn) -> dict:
+def train_sig3d(args, cfg, task, mesh, logger, log_fn) -> dict:
     """Train SIG3D, then evaluate on the val split; the final metrics."""
     datasets = task.build_datasets()
     train_ds, val_ds = datasets["train"], datasets["val"]
     if len(train_ds.vocab) != cfg.data.num_answers:
         raise ValueError(f"the answer vocabulary has {len(train_ds.vocab)} answers "
                          f"but data.num_answers={cfg.data.num_answers}")
-    # answer_vocab.json / info.json parity (train.py:315-333)
-    with open(os.path.join(args.output, "answer_vocab.json"), "w") as fh:
-        json.dump(train_ds.vocab.itos_list, fh)
-    with open(os.path.join(args.output, "info.json"), "w") as fh:
-        json.dump({"task": args.task, "num_train": len(train_ds),
-                   "num_val": len(val_ds), "num_answers": cfg.data.num_answers,
-                   "device": str(device)}, fh, indent=2)
+    if mesh.rank == 0:
+        # answer_vocab.json / info.json parity (train.py:315-333)
+        with open(os.path.join(args.output, "answer_vocab.json"), "w") as fh:
+            json.dump(train_ds.vocab.itos_list, fh)
+        with open(os.path.join(args.output, "info.json"), "w") as fh:
+            json.dump({"task": args.task, "num_train": len(train_ds),
+                       "num_val": len(val_ds), "num_answers": cfg.data.num_answers,
+                       "device": str(mesh.device)}, fh, indent=2)
 
     bs = cfg.train.batch_size
     model = task.build_model()
@@ -125,7 +138,7 @@ def _3dvqa_datasets(args, cfg, task) -> dict:
     return task.build_datasets()
 
 
-def train_3dllm(args, cfg, task, logger, log_fn) -> dict:
+def train_3dllm(args, cfg, task, mesh, logger, log_fn) -> dict:
     """Train Blip2T5 with validation, then evaluate the best checkpoint.
     Returns ``{"step", "num_train_pairs", "num_val", "final"}``."""
     datasets = _3dvqa_datasets(args, cfg, task)
@@ -153,74 +166,96 @@ def train_3dllm(args, cfg, task, logger, log_fn) -> dict:
     else:
         em, preds = trainer.evaluate(eval_batches(val_ds, bs), golds)
         logger.info("final val EM=%.4f over %d answers (best ckpt)", em, len(preds))
-        results_dir = os.path.join(args.output, "results")
-        os.makedirs(results_dir, exist_ok=True)
-        with open(os.path.join(results_dir, "vqa_result.json"), "w") as fh:
-            json.dump([{"question_id": q, "answer": a} for q, a in preds.items()], fh)
+        if mesh.rank == 0:
+            results_dir = os.path.join(args.output, "results")
+            os.makedirs(results_dir, exist_ok=True)
+            with open(os.path.join(results_dir, "vqa_result.json"), "w") as fh:
+                json.dump([{"question_id": q, "answer": a} for q, a in preds.items()], fh)
         final = {"EM": em}
     logger.info("final val: %s", final)
     return {"step": trainer.state.step, "num_train_pairs": len(ds.train_pairs()),
             "num_val": len(val_ds), "final": final}
 
 
-def train_stage1(args, cfg, task, device, logger, log_fn) -> dict:
+def train_stage1(args, cfg, task, mesh, logger, log_fn) -> dict:
     """Stage-1 pretraining of ``Blip2Qformer`` (ITC + ITM + LM), the
     reference's iteration cadence, then every parameter to
     ``{output}/stage1_qformer.npz``. Returns ``{"step", "num_records",
-    "losses" (the last step's), "npz", "tensors"}``."""
+    "losses" (the last step's, over the global batch), "npz", "tensors"}``.
+    On several ranks each trains on its rows; negatives come from the
+    global batch, drawn from one generator seeded alike on every rank."""
     ds = _3dvqa_datasets(args, cfg, task)["train"]
     bs, qcfg = cfg.train.batch_size, cfg.blip2.qformer
-    model = Blip2Qformer(qcfg, dtype=torch.float32, device=device, seed=cfg.train.seed)
+    model = replicated(Blip2Qformer(qcfg, dtype=torch.float32, device=mesh.device,
+                                    seed=cfg.train.seed), mesh)
     optimizer, _ = make_optimizer(cfg.train, model)
-    negatives = torch.Generator(device=device).manual_seed(cfg.train.seed + 2)
+    negatives = sharded(torch.Generator(device=mesh.device).manual_seed(cfg.train.seed + 2),
+                        mesh)
+    axis = mesh.data_axis if mesh.world > 1 else None
     model.train()
     step, out = 0, {}
+
+    def losses():       # the global batch's
+        return {k: float(collectives.pmean(v.detach())) for k, v in out.items()}
+
     for batch in stage1_batches(ds, bs, qcfg, seed=cfg.train.seed, epochs=cfg.train.epochs):
-        out = model(batch, generator=negatives)        # one fresh negative draw a step
+        # one fresh negative draw a step
+        out = model(shard_batch(batch, mesh), negatives_axis=axis, generator=negatives)
         optimizer.discard()
         out["loss"].backward()
+        collectives.pmean_grads(model.parameters())
         optimizer.step()
         step += 1
         if step % cfg.train.log_every_steps == 0:
-            log_fn({k: float(v.detach()) for k, v in out.items()}, step)
+            logged = losses()
+            if mesh.rank == 0:
+                log_fn(logged, step)
         if args.max_steps and step >= args.max_steps:
             break
     path = os.path.join(args.output, "stage1_qformer.npz")
-    n = save_trainable_npz(path, model, {name: True for name, _ in model.named_parameters()})
+    n = sum(1 for _ in model.parameters())          # what rank 0 writes
+    if mesh.rank == 0:
+        n = save_trainable_npz(path, model, {name: True for name, _ in model.named_parameters()})
+    collectives.barrier()
     logger.info("stage1 done: %d steps, %d tensors saved", step, n)
-    return {"step": step, "num_records": len(ds.records),
-            "losses": {k: float(v.detach()) for k, v in out.items()}, "npz": path, "tensors": n}
+    return {"step": step, "num_records": len(ds.records), "losses": losses(), "npz": path,
+            "tensors": n}
 
 
 def main(argv=None) -> dict:
     """Train, then evaluate; returns what the task's branch returns."""
     args = parse_args(argv)
     cfg = load_config(args.config, args.options)
-    # stage 1 reads the 3D-VQA datasets, as the reference's entry point does
-    task = setup_task("3d_vqa" if args.task == "stage1" else args.task, cfg,
-                      synthetic=args.synthetic, device=args.device)
-    device = resolve_device(args.device)
-    logger = setup_logger()
-    set_seed(cfg.train.seed)
-    os.makedirs(args.output, exist_ok=True)
-    save_config(cfg, os.path.join(args.output, "config.json"))
-    writer = MetricWriter(cfg.log.log_dir, cfg.log.use_wandb,
-                          cfg.log.use_tensorboard, cfg.log.project,
-                          config=to_dict(cfg))
+    with collectives.launched(args.device):
+        mesh = make_mesh(cfg.mesh, args.device)
+        batch_sharding(mesh, cfg.train.batch_size)     # the ranks split the global batch
+        # stage 1 reads the 3D-VQA datasets, as the reference's entry point does
+        task = setup_task("3d_vqa" if args.task == "stage1" else args.task, cfg,
+                          synthetic=args.synthetic, device=mesh.device)
+        logger = setup_logger()
+        set_seed(cfg.train.seed)
+        os.makedirs(args.output, exist_ok=True)
+        writer = None
+        if mesh.rank == 0:
+            save_config(cfg, os.path.join(args.output, "config.json"))
+            writer = MetricWriter(cfg.log.log_dir, cfg.log.use_wandb,
+                                  cfg.log.use_tensorboard, cfg.log.project,
+                                  config=to_dict(cfg))
 
-    def log_fn(m, s):
-        writer.write(m, s)
-        logger.info("step %d | %s", s, " ".join(
-            f"{k}={v:.4g}" for k, v in m.items() if isinstance(v, float)))
+        def log_fn(m, s):
+            writer.write(m, s)
+            logger.info("step %d | %s", s, " ".join(
+                f"{k}={v:.4g}" for k, v in m.items() if isinstance(v, float)))
 
-    try:
-        if args.task in ("sqa3d", "multimodal_classification"):
-            return train_sig3d(args, cfg, task, device, logger, log_fn)
-        if args.task == "stage1":
-            return train_stage1(args, cfg, task, device, logger, log_fn)
-        return train_3dllm(args, cfg, task, logger, log_fn)
-    finally:
-        writer.close()
+        try:
+            if args.task in ("sqa3d", "multimodal_classification"):
+                return train_sig3d(args, cfg, task, mesh, logger, log_fn)
+            if args.task == "stage1":
+                return train_stage1(args, cfg, task, mesh, logger, log_fn)
+            return train_3dllm(args, cfg, task, mesh, logger, log_fn)
+        finally:
+            if writer is not None:
+                writer.close()
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Configuration tree of the port: its own copy of the groups the ported
 slice reads from ``situation3d_tpu/config.py`` (``DataConfig``,
 ``SparseConfig``, ``ModelConfig``, ``LangConfig``, ``LossConfig``,
-``TrainConfig``, ``QFormerConfig``, ``T5Config``, ``Blip2Config``,
-``LogConfig``, ``EvalConfig``, ``Config``) with the same
+``TrainConfig``, ``MeshConfig``, ``QFormerConfig``, ``T5Config``,
+``Blip2Config``, ``LogConfig``, ``EvalConfig``, ``Config``) with the same
 field names and defaults, so one YAML file or one list of dot-key overrides
-configures both packages.
+configures both packages; an unknown key or group raises, as it does there.
 
 ``SparseConfig`` keeps the reference's routing fields (``pallas_gather``,
 ``fused_conv``, ``conv0_zwin``, ``conv_flat_gather``, ``zwin_level1``, ...)
@@ -179,6 +179,20 @@ class TrainConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Data parallelism over processes, one card each (``parallel/mesh.py``).
+    ``data_parallel`` is -1 (every process of the run) or the run's process
+    count; ``model_parallel`` above 1 (tensor parallelism of T5) is not
+    ported. The axis names and ``allow_split_physical_axes`` are the
+    reference's, read and kept."""
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1            # -1 => all processes
+    model_parallel: int = 1
+    allow_split_physical_axes: bool = True
+
+
+@dataclass
 class QFormerConfig:
     """Q-Former of the 3D-LLM (BLIP-2's querying transformer)."""
     num_query_tokens: int = 32
@@ -258,6 +272,7 @@ class Config:
     lang: LangConfig = field(default_factory=LangConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     blip2: Blip2Config = field(default_factory=Blip2Config)
     log: LogConfig = field(default_factory=LogConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
@@ -361,16 +376,13 @@ def apply_overrides(cfg: Config, options: List[str]) -> Config:
 
 
 def load_config(path: Optional[str] = None, options: Optional[List[str]] = None) -> Config:
-    """Load a Config from a YAML file (optional) plus dot-key overrides.
-    The reference's ``mesh`` group (multi-device layout, not ported yet) is
-    skipped."""
+    """Load a Config from a YAML file (optional) plus dot-key overrides."""
     cfg = Config()
     if path:
         import yaml  # only needed to read a file
         with open(path) as fh:
             data = yaml.safe_load(fh) or {}
-        known = {f.name for f in fields(cfg)}
-        cfg = _merge_dataclass(cfg, {k: v for k, v in data.items() if k in known})
+        cfg = _merge_dataclass(cfg, data)
     if options:
         cfg = apply_overrides(cfg, options)
     return cfg

@@ -22,6 +22,14 @@ texts)``; without it the noise is drawn from ``generator`` (on the model's
 device without one). Nothing
 here drops out (the reference's layers have no dropout either).
 
+``negatives_axis`` names the data axis when this process holds its rows of
+a batch split over processes (``parallel/mesh.py``): the step then computes
+what the reference's step computes on the global batch. ITC takes its
+negatives from every process; the ITM hard negatives are drawn over the
+global batch (gathered similarities, scene features, captions), the noise
+drawn at the global ``[B, B]`` and cut to this process's rows; the LM loss
+is this process's term of the global token mean.
+
 ``Blip2Qformer`` is built on its device from a seed as ``Blip2T5`` is; it
 owns ``word_embeddings`` and lends it to its ``QFormerTextModel``, so the
 module paths equal the reference's tree paths.
@@ -39,6 +47,7 @@ from situation3d_tpu_torch.device import tree_to_device
 from situation3d_tpu_torch.models.layers import Dense, Embed, LayerNorm, materialise
 from situation3d_tpu_torch.models.qformer import NEG_INF, BertSelfAttentionOut
 from situation3d_tpu_torch.models.t5 import gumbel_noise
+from situation3d_tpu_torch.parallel import collectives
 from situation3d_tpu_torch.train.contrastive import itc_loss, itm_loss, lm_loss, normalize
 from situation3d_tpu_torch.utils.registry import registry
 
@@ -225,11 +234,16 @@ class Blip2Qformer(nn.Module):
         loss_itc = itc_loss(image_feats.float(), text_feat.float(), temp, axis=negatives_axis)
 
         # --- ITM with in-batch hard negatives --------------------------------
-        neg_img, neg_txt = self.draw_negatives(image_feats, text_feat, temp, gumbel, generator)
-        itm_images = torch.cat([image_embeds, image_embeds[neg_img], image_embeds])
-        itm_image_mask = torch.cat([image_mask, image_mask[neg_img], image_mask])
-        itm_text = torch.cat([text_ids, text_ids, text_ids[neg_txt]])
-        itm_tmask = torch.cat([text_mask, text_mask, text_mask[neg_txt]])
+        neg_img, neg_txt = self.draw_negatives(image_feats, text_feat, temp, gumbel, generator,
+                                               negatives_axis)
+        pool = (image_embeds, image_mask, text_ids, text_mask)
+        if negatives_axis is not None:      # negatives index the global batch
+            pool = tuple(collectives.all_gather(x, tiled=True) for x in pool)
+        all_img, all_imask, all_txt, all_tmask = pool
+        itm_images = torch.cat([image_embeds, all_img[neg_img], image_embeds])
+        itm_image_mask = torch.cat([image_mask, all_imask[neg_img], image_mask])
+        itm_text = torch.cat([text_ids, text_ids, all_txt[neg_txt]])
+        itm_tmask = torch.cat([text_mask, text_mask, all_tmask[neg_txt]])
         mm = self.qformer(enc_states=itm_images, enc_mask=itm_image_mask, text_ids=itm_text,
                           text_mask=itm_tmask, use_query=True)
         logits = self.itm_head(mm[:, :nq]).mean(dim=1)                            # [3B, 2]
@@ -243,25 +257,36 @@ class Blip2Qformer(nn.Module):
         lm_hidden = self.qformer(enc_states=image_embeds, enc_mask=image_mask,
                                  text_ids=dec_in, text_mask=torch.ones_like(text_mask),
                                  use_query=True, causal_text=True)
-        loss_lm = lm_loss(self.lm_logits(lm_hidden[:, nq:]), text_ids, text_mask)
+        loss_lm = lm_loss(self.lm_logits(lm_hidden[:, nq:]), text_ids, text_mask,
+                          axis=negatives_axis)
 
         return {"loss": loss_itc + loss_itm + loss_lm, "loss_itc": loss_itc,
                 "loss_itm": loss_itm, "loss_lm": loss_lm}
 
     @torch.no_grad()
-    def draw_negatives(self, image_feats, text_feat, temp, gumbel=None, generator=None):
+    def draw_negatives(self, image_feats, text_feat, temp, gumbel=None, generator=None,
+                       axis=None):
         """(hard negative image a text, hard negative text an image): draws of
         the categorical over the similarities (the pair itself excluded),
-        ``argmax(w + Gumbel)``."""
-        B = text_feat.shape[0]
-        sim = torch.einsum("bqd,jd->bqj", normalize(image_feats.float()),
-                           normalize(text_feat.float())).amax(dim=1) / temp      # [B, B]
+        ``argmax(w + Gumbel)``. With ``axis``: over the global batch, for
+        this process's rows, as indices into the global batch; ``gumbel``
+        is the global batch's noise [B, B] either way."""
+        img, txt = normalize(image_feats.float()), normalize(text_feat.float())
+        rows = slice(None)
+        if axis is not None:
+            B, r = txt.shape[0], collectives.rank()
+            img, txt = (collectives.all_gather(x, tiled=True) for x in (img, txt))
+            rows = slice(r * B, (r + 1) * B)
+        B = txt.shape[0]
+        sim = torch.einsum("bqd,jd->bqj", img, txt).amax(dim=1) / temp      # [B, B]
         eye = torch.eye(B, dtype=torch.bool, device=sim.device)
-        w_t2i = torch.where(eye, NEG_INF, sim.T)     # text b picks a hard image
-        w_i2t = torch.where(eye, NEG_INF, sim)       # image b picks a hard text
+        w_t2i = torch.where(eye, NEG_INF, sim.T)[rows]     # text b picks a hard image
+        w_i2t = torch.where(eye, NEG_INF, sim)[rows]       # image b picks a hard text
         if gumbel is None:
             where = generator.device if generator is not None else sim.device
-            gumbel = tuple(gumbel_noise((B, B), generator, where) for _ in range(2))
+            gumbel = tuple(gumbel_noise(w_t2i.shape, generator, where) for _ in range(2))
+        else:
+            gumbel = tuple(g[rows] for g in gumbel)
         g_t2i, g_i2t = (g.to(sim.device) for g in gumbel)
         return (w_t2i + g_t2i).argmax(dim=-1), (w_i2t + g_i2t).argmax(dim=-1)
 

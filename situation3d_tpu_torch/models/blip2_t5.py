@@ -81,12 +81,15 @@ class Blip2T5(nn.Module):
         query_t5 = self.encode_scene(b["pc_feat"], b["pc"], b["pc_mask"])
         return self._encoder_inputs(query_t5, b["input_ids"], b["input_mask"])
 
-    def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, Any], axis: Optional[str] = None
+                ) -> Dict[str, torch.Tensor]:
         """Training forward -> {"loss", "logits"}.
 
         batch: pc_feat [B,N,1408], pc int [B,N,3], pc_mask [B,N],
         input_ids/input_mask [B,Lt] prompt tokens, labels [B,La] answer
-        tokens (pad = -100), label_mask [B,La].
+        tokens (pad = -100), label_mask [B,La]. ``axis``: this process holds
+        its rows of a batch split over processes, and the loss is its term
+        of the global batch's token mean (``models/t5.py:t5_cross_entropy``).
         """
         t5c = self.cfg.t5
         b = self._to_device(batch)
@@ -94,7 +97,7 @@ class Blip2T5(nn.Module):
         labels = b["labels"].long()
         dec_in = shift_right(labels, t5c.decoder_start_token_id, t5c.pad_token_id)
         logits = self.t5(inputs_embeds, enc_mask, dec_in, b["label_mask"])
-        return {"loss": t5_cross_entropy(logits, labels, b["label_mask"]),
+        return {"loss": t5_cross_entropy(logits, labels, b["label_mask"], axis),
                 "logits": logits}
 
 

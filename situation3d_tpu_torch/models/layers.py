@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from situation3d_tpu_torch.device import resolve_device
+from situation3d_tpu_torch.parallel.mesh import draw
 
 
 class Dense(nn.Linear):
@@ -142,11 +143,12 @@ def dropout(x: torch.Tensor, p: float, train: bool,
     """Inverted dropout: in training each element is kept with probability
     ``1 - p`` and scaled by ``1 / (1 - p)``; the identity otherwise. The mask
     is drawn where ``generator`` lives (on ``x``'s device without one), so
-    one seeded generator reproduces a step."""
+    one seeded generator reproduces a step; a ``ShardedGenerator`` gives the
+    rank's rows of the global batch's mask."""
     if not train or p <= 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     where = generator.device if generator is not None else x.device
-    keep = torch.rand(x.shape, generator=generator, device=where) >= p
+    keep = draw(torch.rand, x.shape, generator=generator, device=where) >= p
     return x * keep.to(x.device) * (1.0 / (1.0 - p))

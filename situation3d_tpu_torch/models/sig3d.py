@@ -33,6 +33,7 @@ from situation3d_tpu_torch.ops.cuda.gather_rows import (GatherRows,
                                                         scatter_add_rows,
                                                         segment_plan)
 from situation3d_tpu_torch.ops.voxelize import voxelize_torch
+from situation3d_tpu_torch.parallel.mesh import draw
 from situation3d_tpu_torch.sparse.minkunet import MinkUNet, build_unet_plan
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
 
@@ -53,11 +54,12 @@ def make_sample_draws(batch_size: int, num_voxels: int, num_tokens: int,
     """The random numbers :func:`situated_token_pool` consumes:
     ``sort_uniform`` float32 [B, V] in [0, 1) and ``dup`` int32 [B, N] in
     [0, 2^31 - 1). Drawn where the generator lives (the CPU without one) and
-    moved to ``device``."""
+    moved to ``device``; a ``ShardedGenerator`` gives the rank's rows of the
+    global batch's draws."""
     gdev = generator.device if generator is not None else "cpu"
-    u = torch.rand(batch_size, num_voxels, generator=generator, device=gdev)
-    dup = torch.randint(0, _INT32_MAX, (batch_size, num_tokens),
-                        generator=generator, device=gdev, dtype=torch.int32)
+    u = draw(torch.rand, (batch_size, num_voxels), generator=generator, device=gdev)
+    dup = draw(torch.randint, (batch_size, num_tokens), 0, _INT32_MAX,
+               generator=generator, device=gdev, dtype=torch.int32)
     return u.to(device), dup.to(device)
 
 

@@ -30,6 +30,8 @@ from situation3d_tpu_torch.config import T5Config
 from situation3d_tpu_torch.models.layers import Dense, Embed
 from situation3d_tpu_torch.models.relpos import (relative_position_bucket,
                                                  relative_position_matrix)
+from situation3d_tpu_torch.parallel import collectives
+from situation3d_tpu_torch.parallel.mesh import draw
 
 NEG_INF = -1e9
 
@@ -292,12 +294,18 @@ def shift_right(labels: torch.Tensor, start_id: int, pad_id: int) -> torch.Tenso
     return torch.where(shifted == -100, torch.full_like(shifted, pad_id), shifted)
 
 
-def t5_cross_entropy(logits, labels, label_mask) -> torch.Tensor:
-    """Token-mean CE ignoring masked labels (HF -100 convention)."""
+def t5_cross_entropy(logits, labels, label_mask, axis: Optional[str] = None
+                     ) -> torch.Tensor:
+    """Token-mean CE ignoring masked labels (HF -100 convention); with
+    ``axis`` this process's term of the global batch's token mean
+    (``collectives.token_mean``): the processes' answers differ in length,
+    so the mean of their own token means is not the global one."""
     safe = torch.where(labels < 0, torch.zeros_like(labels), labels)
     per = F.cross_entropy(logits.float().flatten(0, -2), safe.flatten().long(),
                           reduction="none").view(labels.shape)
     m = label_mask.float()
+    if axis is not None:
+        return collectives.token_mean((per * m).sum(), m.sum())
     return (per * m).sum() / m.sum().clamp(min=1.0)
 
 
@@ -317,7 +325,7 @@ def _topk_stable(x: torch.Tensor, k: int):
 def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Standard Gumbel draws ``-log(-log(u))``, ``u`` uniform in [tiny, 1)."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device).clamp(min=tiny)
+    u = draw(torch.rand, shape, generator=generator, device=device).clamp(min=tiny)
     return -torch.log(-torch.log(u))
 
 

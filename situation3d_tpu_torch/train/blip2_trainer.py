@@ -13,10 +13,16 @@
 - checkpoints: the reference's trainable-only save (``runner_base.py:530-554``)
   plus the optimizer and the step, one file a step; the frozen T5 comes from
   wherever the model was built (its seed or a converted checkpoint);
-- ``evaluate_generation`` writes ``vqa_result_rank0.json`` and the merged
-  ``vqa_result.json`` (the reference's per-rank save).
+- ``evaluate_generation`` writes ``vqa_result_rank{r}.json`` and, on rank
+  0 after a barrier, the merged ``vqa_result.json`` (the reference's
+  per-rank save).
 
-There is no mesh: data parallelism over several cards is a later slice.
+Data parallelism (``parallel/mesh.py``): under a process group every rank
+reads the same global batch and keeps its rows; the loss is the rank's term
+of the global batch's token mean (the ranks' answers differ in length), the
+trainable gradients are averaged over the ranks, and the NaN guard's flag is
+reduced over them. Generation runs each rank's rows and gathers the tokens.
+Rank 0 alone logs and writes.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ import torch
 from situation3d_tpu_torch.config import Config
 from situation3d_tpu_torch.eval.scorers import exact_match
 from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, predict_answers
+from situation3d_tpu_torch.parallel import collectives
+from situation3d_tpu_torch.parallel.mesh import (Mesh, batch_sharding, make_mesh, replicated,
+                                                 shard_batch)
 from situation3d_tpu_torch.train.checkpoint import CheckpointManager, save_trainable_npz
 from situation3d_tpu_torch.train.logging import MetricLogger
 from situation3d_tpu_torch.train.optim import (Optimizer, blip2_trainable_mask,
@@ -72,19 +81,22 @@ class Blip2TrainState:
         self.step = int(state["step"])
 
 
-def blip2_train_step(cfg: Config, state: Blip2TrainState, batch: Dict[str, Any]
-                     ) -> Dict[str, torch.Tensor]:
-    """One optimizer step; the step's metrics as tensors on the device. A
-    non-finite step (``train.nan_guard``) changes no parameter and no
-    optimizer state."""
+def blip2_train_step(cfg: Config, state: Blip2TrainState, batch: Dict[str, Any],
+                     mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step; the step's metrics (this rank's) as tensors on
+    the device. A non-finite step (``train.nan_guard``) changes no parameter
+    and no optimizer state. With a ``mesh`` of several ranks ``batch`` holds
+    this rank's rows (``shard_batch``)."""
     model = state.model
     model.train()
-    loss = model(batch)["loss"]
+    loss = model(batch, axis=mesh.data_axis if mesh and mesh.world > 1 else None)["loss"]
     state.optimizer.discard()
     loss.backward()
+    collectives.pmean_grads(state.optimizer.params)
     metrics = {"loss": loss.detach()}
     if cfg.train.nan_guard != "off":
         finite = grads_finite(loss.detach(), state.optimizer.params, cfg.train.nan_guard)
+        finite = collectives.pmin(finite.to(torch.float32)).bool()    # one verdict
         metrics["grads_finite"] = finite.to(torch.float32)
         if bool(finite):
             state.optimizer.step()
@@ -98,13 +110,16 @@ def blip2_train_step(cfg: Config, state: Blip2TrainState, batch: Dict[str, Any]
 
 class Blip2Trainer:
     """RunnerBase / RunnerIter for the 3d_vqa task. ``model`` decides the
-    device."""
+    device, ``cfg.mesh`` and the process group that is up the data-parallel
+    layout."""
 
     def __init__(self, cfg: Config, model: Blip2T5, steps_per_epoch: int,
                  log_fn: Optional[Callable] = None,
                  text_decoder: Optional[Callable] = None):
         self.cfg = cfg
         self.model = model
+        self.mesh = make_mesh(cfg.mesh, model.device)
+        replicated(model, self.mesh)
         self.steps_per_epoch = max(steps_per_epoch, 1)
         optimizer, self.schedule = make_blip2_optimizer(cfg, model, self.steps_per_epoch)
         self.state = Blip2TrainState(model, optimizer, 0)
@@ -124,6 +139,7 @@ class Blip2Trainer:
     def resume(self) -> bool:
         """Restore the latest checkpoint (trainable parameters, optimizer,
         step). False when there is none."""
+        collectives.barrier()           # a checkpoint rank 0 is writing is whole
         saved = self.ckpt.restore(map_location=self.model.device)
         if saved is None:
             return False
@@ -131,10 +147,14 @@ class Blip2Trainer:
         return True
 
     def save(self, metrics: Optional[dict] = None) -> None:
-        self.ckpt.save(self.state.step, self.state.state_dict(), metrics)
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.mesh.rank == 0:
+            self.ckpt.save(self.state.step, self.state.state_dict(), metrics)
+        collectives.barrier()
 
     def reload_best(self) -> Optional[int]:
         """Reload the retained checkpoint with the best ``val_em``."""
+        collectives.barrier()
         step = self.ckpt.best_step("val_em")
         if step is None:
             return None
@@ -142,8 +162,11 @@ class Blip2Trainer:
         return step
 
     def save_trainable(self, path: str) -> int:
-        """Trainable-only ``.npz`` (the reference's best-model save)."""
-        return save_trainable_npz(path, self.model, self.trainable)
+        """Trainable-only ``.npz`` (the reference's best-model save), written
+        by rank 0."""
+        n = save_trainable_npz(path, self.model, self.trainable) if self.mesh.rank == 0 else 0
+        collectives.barrier()
+        return n
 
     # -- training ---------------------------------------------------------
 
@@ -165,17 +188,19 @@ class Blip2Trainer:
             if step >= limit:
                 break
             fetch.append(time.perf_counter() - t_fetch)
-            metrics = blip2_train_step(self.cfg, self.state, batch)
+            metrics = blip2_train_step(self.cfg, self.state, shard_batch(batch, self.mesh),
+                                       self.mesh)
             step = self.state.step
             if step % cfg.log_every_steps == 0:
                 self._sync()
-                meter.update(loss=float(metrics["loss"]))
-                self.log_fn({"loss": meter.meters["loss"].value,
-                             "loss_smoothed": meter.meters["loss"].median,
-                             "lr": float(self.schedule(self.state.optimizer.updates)),
-                             "time/step": (time.perf_counter() - t0) / cfg.log_every_steps,
-                             "time/fetch": float(np.mean(fetch[-cfg.log_every_steps:]))},
-                            step)
+                meter.update(loss=float(collectives.pmean(metrics["loss"])))
+                if self.mesh.rank == 0:
+                    self.log_fn({"loss": meter.meters["loss"].value,
+                                 "loss_smoothed": meter.meters["loss"].median,
+                                 "lr": float(self.schedule(self.state.optimizer.updates)),
+                                 "time/step": (time.perf_counter() - t0) / cfg.log_every_steps,
+                                 "time/fetch": float(np.mean(fetch[-cfg.log_every_steps:]))},
+                                step)
                 t0 = time.perf_counter()
             if (step % cadence == 0 or step >= limit) and last_val != step:
                 self._validate(step, val_iter_fn, golds)
@@ -193,7 +218,8 @@ class Blip2Trainer:
             self.save()
             return
         em, preds = self.evaluate(val_iter_fn(), golds)
-        self.log_fn({"val/em": em, "val/n": float(len(preds))}, step)
+        if self.mesh.rank == 0:
+            self.log_fn({"val/em": em, "val/n": float(len(preds))}, step)
         self.save({"val_em": em})
         if em > self.best_metric:
             self.best_metric = em
@@ -203,7 +229,8 @@ class Blip2Trainer:
     # -- evaluation -------------------------------------------------------
 
     def predict(self, eval_iter: Iterable) -> Dict[int, str]:
-        """Greedy ``predict_answers`` over eval batches -> {qid: answer}."""
+        """Greedy ``predict_answers`` over eval batches -> {qid: answer},
+        every rank's rows on every rank."""
         if self.text_decoder is None:
             raise ValueError("Blip2Trainer.predict needs a text_decoder")
         self.model.eval()
@@ -211,7 +238,7 @@ class Blip2Trainer:
         for batch in eval_iter:
             qids = np.asarray(batch["question_id"])
             valid = np.asarray(batch.get("sample_valid", np.ones(len(qids), bool)))
-            tokens = predict_answers(self.model, batch, self.cfg.eval.max_gen_len).cpu().numpy()
+            tokens = _predict_global(self.model, batch, self.cfg.eval.max_gen_len, self.mesh)
             for i in range(len(qids)):
                 if valid[i]:
                     out[int(qids[i])] = self.text_decoder(tokens[i])
@@ -236,31 +263,49 @@ def train_blip2(cfg: Config, model: Blip2T5, train_iter: Iterable,
     return model
 
 
+def _predict_global(model: Blip2T5, batch: Dict[str, Any], max_len: int,
+                    mesh: Mesh) -> np.ndarray:
+    """Greedy tokens of the global ``batch``: each rank decodes its rows and
+    the tokens are gathered."""
+    tokens = predict_answers(model, shard_batch(batch, mesh), max_len)
+    if mesh.world > 1:
+        tokens = collectives.all_gather(tokens, tiled=True)
+    return tokens.cpu().numpy()
+
+
 def evaluate_generation(cfg: Config, model: Blip2T5, eval_iter: Iterable, text_decoder,
-                        output_dir: Optional[str] = None,
-                        max_len: Optional[int] = None) -> Dict[int, str]:
-    """``predict_answers`` over the eval set -> {question_id: answer}. With
-    ``output_dir``, writes this process's ``vqa_result_rank0.json`` and the
-    merged ``vqa_result.json``."""
+                        output_dir: Optional[str] = None, max_len: Optional[int] = None,
+                        mesh: Optional[Mesh] = None) -> Dict[int, str]:
+    """``predict_answers`` over the eval set -> {question_id: answer}, every
+    rank's answers. With a ``mesh`` of several ranks each rank decodes its
+    rows of every batch. With ``output_dir``, each rank writes its
+    ``vqa_result_rank{r}.json``; after a barrier rank 0 merges them into
+    ``vqa_result.json``."""
+    mesh = mesh or make_mesh(cfg.mesh, model.device)
     model.eval()
     results: List[Dict[str, Any]] = []
     for batch in eval_iter:
         qids = np.asarray(batch["question_id"])
         valid = np.asarray(batch.get("sample_valid", np.ones(len(qids), bool)))
-        tokens = predict_answers(model, batch, max_len or cfg.eval.max_gen_len).cpu().numpy()
-        for i in range(len(qids)):
+        rows = range(len(qids))[batch_sharding(mesh, len(qids))]
+        tokens = predict_answers(model, shard_batch(batch, mesh),
+                                 max_len or cfg.eval.max_gen_len).cpu().numpy()
+        for t, i in zip(tokens, rows):
             if valid[i]:
-                results.append({"question_id": int(qids[i]),
-                                "answer": text_decoder(tokens[i])})
+                results.append({"question_id": int(qids[i]), "answer": text_decoder(t)})
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
-        with open(os.path.join(output_dir, "vqa_result_rank0.json"), "w") as fh:
+        with open(os.path.join(output_dir, f"vqa_result_rank{mesh.rank}.json"), "w") as fh:
             json.dump(results, fh)
-        merged = []
-        for fn in sorted(os.listdir(output_dir)):
-            if fn.startswith("vqa_result_rank"):
-                with open(os.path.join(output_dir, fn)) as fh:
-                    merged.extend(json.load(fh))
-        with open(os.path.join(output_dir, "vqa_result.json"), "w") as fh:
-            json.dump(merged, fh)
-    return {r["question_id"]: r["answer"] for r in results}
+        collectives.barrier()           # every rank's file is written
+        if mesh.rank == 0:
+            merged = []
+            for fn in sorted(os.listdir(output_dir)):
+                if fn.startswith("vqa_result_rank"):
+                    with open(os.path.join(output_dir, fn)) as fh:
+                        merged.extend(json.load(fh))
+            with open(os.path.join(output_dir, "vqa_result.json"), "w") as fh:
+                json.dump(merged, fh)
+        collectives.barrier()
+    everyone = [r for part in collectives.process_gather_host(results) for r in part]
+    return {r["question_id"]: r["answer"] for r in everyone}

@@ -1,8 +1,9 @@
 """Metric writers and step profiling (port of
 ``situation3d_tpu/train/logging.py``): one ``MetricWriter`` facade over a
 JSON-lines file plus, only if asked for and installed, TensorBoard and wandb;
-``SmoothedValue`` / ``MetricLogger`` for windowed console metrics;
-``StepProfiler`` over ``torch.profiler``.
+``SmoothedValue`` / ``MetricLogger`` for windowed console metrics, whose
+global averages ``synchronize_between_processes`` merges over the ranks of a
+data-parallel run; ``StepProfiler`` over ``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import logging
 import os
 import time
 from typing import Dict, Iterable, Optional, Tuple
+
+from situation3d_tpu_torch.parallel import collectives
 
 _LOGGER = "situation3d_tpu_torch.metrics"
 
@@ -93,6 +96,16 @@ class SmoothedValue:
         self.count += n
         self.total += float(value) * n
 
+    def synchronize_between_processes(self) -> None:
+        """Sum ``count`` and ``total`` over the ranks, so ``global_avg`` is
+        the run's (the window stays this rank's)."""
+        if collectives.world() == 1:
+            return
+        import torch
+        both = collectives.psum(torch.tensor([self.count, self.total], dtype=torch.float64))
+        self.count = int(both[0])
+        self.total = float(both[1])
+
     @property
     def median(self) -> float:
         s = sorted(self.deque)
@@ -138,6 +151,10 @@ class MetricLogger:
         if name in self.meters:
             return self.meters[name]
         raise AttributeError(name)
+
+    def synchronize_between_processes(self) -> None:
+        for m in self.meters.values():
+            m.synchronize_between_processes()
 
     def global_avg(self) -> Dict[str, float]:
         return {k: m.global_avg for k, m in self.meters.items()}

@@ -29,6 +29,7 @@ from situation3d_tpu_torch.eval.scorers import exact_match, score_all
 from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
 from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, generate
 from situation3d_tpu_torch.models.sig3d import SIG3D, init_random_weights
+from situation3d_tpu_torch.parallel import collectives
 from situation3d_tpu_torch.train.trainer import Trainer
 from situation3d_tpu_torch.utils.registry import registry
 
@@ -194,11 +195,19 @@ class RetrievalTask:
                             device=self.device, seed=cfg.train.seed)
 
     def evaluation(self, model: Blip2Qformer, image_embeds, image_mask, text_ids,
-                   text_mask, img2txt, txt2img, rank: int = 0, world: int = 1
-                   ) -> Dict[str, float]:
+                   text_mask, img2txt, txt2img) -> Dict[str, float]:
+        """Recall@k. Under a process group each rank reranks its rows
+        (``compute_sim_matrix``'s ``(rank, world)`` split), the score
+        matrices are summed over the ranks (the reference's merge: a row
+        outside a rank's range adds a constant, which leaves its ranking
+        as it is) and rank 0 computes the metrics; the other ranks return
+        ``{}``."""
+        rank, world = collectives.rank(), collectives.world()
         i2t, t2i = compute_sim_matrix(model, image_embeds, image_mask, text_ids, text_mask,
                                       k_test=self.k_test, rank=rank, world=world)
-        return retrieval_metrics(i2t, t2i, img2txt, txt2img)
+        if world > 1:
+            i2t, t2i = (collectives.psum(torch.from_numpy(s)).numpy() for s in (i2t, t2i))
+        return retrieval_metrics(i2t, t2i, img2txt, txt2img) if rank == 0 else {}
 
 
 @registry.register_task("dialogue")

@@ -1,5 +1,5 @@
-"""SIG3D trainer (port of ``situation3d_tpu/train/trainer.py``) on one
-device, eager PyTorch:
+"""SIG3D trainer (port of ``situation3d_tpu/train/trainer.py``), eager
+PyTorch:
 
 - ``train_step`` = forward in training form + loss + backward + NaN guard +
   optimizer update + answer metrics + overflow counters;
@@ -9,7 +9,15 @@ device, eager PyTorch:
   ``val_every_steps``, best tracked by ``answer_acc_at1`` (checkpoint +
   ``best_val_pred_answers.csv``), a final checkpoint.
 
-There is no mesh here: data parallelism over several cards is a later slice.
+Data parallelism (``parallel/mesh.py``): under a process group of ``w``
+ranks every rank reads the same global batch and keeps its rows; a step
+draws its token samples and dropout masks at the global batch's shape,
+averages the trainable gradients over the ranks with one flattened
+all-reduce (no ``DistributedDataParallel``: its hooks would wait for the
+UNet decoder, which gets no gradient in unfrozen training and moves by
+weight decay alone) and reduces the NaN guard's flag over the ranks, so
+every rank takes or skips the same update. Evaluation gathers the outputs
+and scores the global batch on every rank. Rank 0 alone logs and writes.
 """
 from __future__ import annotations
 
@@ -24,6 +32,9 @@ import torch
 
 from situation3d_tpu_torch.config import Config
 from situation3d_tpu_torch.models.sig3d import SIG3D
+from situation3d_tpu_torch.parallel import collectives
+from situation3d_tpu_torch.parallel.mesh import (Mesh, make_mesh, replicated, shard_batch,
+                                                 sharded)
 from situation3d_tpu_torch.train.checkpoint import CheckpointManager
 from situation3d_tpu_torch.train.logging import StepProfiler
 from situation3d_tpu_torch.train.losses import get_loss
@@ -84,22 +95,26 @@ def grads_finite(loss: torch.Tensor, params, mode: str = "loss") -> torch.Tensor
     return finite
 
 
-def train_step(cfg: Config, state: TrainState, batch: Dict[str, Any]
-               ) -> Dict[str, torch.Tensor]:
-    """One optimizer step on ``batch``; returns the step's metrics as
-    tensors on the model's device. A non-finite step (see
-    ``train.nan_guard``) changes no parameter and no optimizer state."""
+def train_step(cfg: Config, state: TrainState, batch: Dict[str, Any],
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step on ``batch``; returns the step's metrics (this
+    rank's) as tensors on the model's device. A non-finite step (see
+    ``train.nan_guard``) changes no parameter and no optimizer state. With
+    a ``mesh`` of several ranks ``batch`` holds this rank's rows
+    (``shard_batch``)."""
     model = state.model
     model.train()
     b = model._to_device(batch)
-    out = model(b, generator=state.sample_generator, train=True,
-                dropout_generator=state.dropout_generator)
+    out = model(b, generator=sharded(state.sample_generator, mesh), train=True,
+                dropout_generator=sharded(state.dropout_generator, mesh))
     loss, terms = get_loss(out, b, cfg.loss, cfg.model.situation_loss_tag)
     state.optimizer.discard()
     loss.backward()
+    collectives.pmean_grads(state.optimizer.params)
     metrics = {k: v.detach() for k, v in terms.items()}
     if cfg.train.nan_guard != "off":
         finite = grads_finite(loss.detach(), state.optimizer.params, cfg.train.nan_guard)
+        finite = collectives.pmin(finite.to(torch.float32)).bool()    # one verdict
         metrics["grads_finite"] = finite.to(torch.float32)
         if bool(finite):
             state.optimizer.step()
@@ -115,14 +130,28 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, Any]
     return metrics
 
 
+# the outputs the metrics, the loss and the situation scores read
+_SCORED = ("answer_scores", "aux_scores", "scene_positions", "auxiliary_task_loc_gt")
+
+
 def eval_step(cfg: Config, state: TrainState, batch: Dict[str, Any],
-              generator: Optional[torch.Generator] = None):
-    """Evaluation forward: ``(metrics, kept outputs)``."""
+              generator: Optional[torch.Generator] = None, mesh: Optional[Mesh] = None):
+    """Evaluation forward: ``(metrics, kept outputs)``. With a ``mesh`` of
+    several ranks ``batch`` is the global batch: each rank runs its rows,
+    and the outputs are gathered so that every rank scores the global batch,
+    as the reference's step does (a padded last batch can leave the ranks
+    different numbers of valid rows, so merging the ranks' own means would
+    weigh them otherwise)."""
     model = state.model
     model.eval()
     with torch.inference_mode():
         b = model._to_device(batch)
-        out = model(b, generator=generator, train=False)
+        if mesh is None or mesh.world == 1:
+            out = model(b, generator=generator, train=False)
+        else:
+            mine = model(shard_batch(batch, mesh), generator=sharded(generator, mesh),
+                         train=False)
+            out = {k: collectives.all_gather(mine[k], tiled=True) for k in _SCORED if k in mine}
         metrics = answer_metrics(out["answer_scores"], b["answer_cat_scores"],
                                  b.get("question_type"), b.get("sample_valid"))
         _, terms = get_loss(out, b, cfg.loss, cfg.model.situation_loss_tag)
@@ -135,13 +164,16 @@ def eval_step(cfg: Config, state: TrainState, batch: Dict[str, Any],
 class Trainer:
     """Step loop with validation, logging and checkpointing. ``model``
     decides the device (``SIG3D`` defaults to the card and raises without
-    one)."""
+    one); ``cfg.mesh`` and the process group that is up the data-parallel
+    layout (``parallel/mesh.py:make_mesh``)."""
 
     def __init__(self, cfg: Config, model: SIG3D, steps_per_epoch: int,
                  state: Optional[TrainState] = None,
                  log_fn: Optional[Callable[[Dict[str, float], int], None]] = None):
         self.cfg = cfg
         self.model = model
+        self.mesh = make_mesh(cfg.mesh, model.device)
+        replicated(model, self.mesh)
         self.steps_per_epoch = steps_per_epoch
         self.state = state or create_train_state(cfg, model, steps_per_epoch,
                                                  cfg.train.seed)
@@ -152,14 +184,32 @@ class Trainer:
         self.best_acc = -1.0
         self.log_fn = log_fn or (lambda m, s: None)
         self._timings: Dict[str, list] = {"fetch": [], "step": []}
-        self.profiler = StepProfiler(cfg.log.log_dir, tuple(cfg.log.profile_steps))
+        self.profiler = StepProfiler(cfg.log.log_dir, tuple(cfg.log.profile_steps)
+                                     if self.mesh.rank == 0 else (0, 0))
         self.last_predictions: list = []
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return train_step(self.cfg, self.state, batch)
+        """A step on this rank's rows of the global ``batch``."""
+        return train_step(self.cfg, self.state, shard_batch(batch, self.mesh), self.mesh)
 
     def eval_step(self, batch: Dict[str, Any], generator=None):
-        return eval_step(self.cfg, self.state, batch, generator)
+        return eval_step(self.cfg, self.state, batch, generator, self.mesh)
+
+    def _save(self, step: int, metrics: Optional[dict] = None) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.mesh.rank == 0:
+            self.ckpt.save(step, self.state.state_dict(), metrics)
+        collectives.barrier()
+
+    def _global_scalars(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """The step's 0-d metrics over the global batch: the ranks' mean,
+        their sum for the overflow counters."""
+        host = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+        if self.mesh.world == 1:
+            return host
+        sums = collectives.psum(torch.tensor(list(host.values()), dtype=torch.float64))
+        return {k: float(s) if k.startswith("overflow/") else float(s) / self.mesh.world
+                for k, s in zip(host, sums)}
 
     def _sync(self) -> None:
         if self.model.device.type == "cuda":
@@ -168,6 +218,7 @@ class Trainer:
     def resume(self) -> bool:
         """Restore the latest checkpoint of ``train.ckpt_dir`` (model,
         optimizer, step, generators). False when there is none."""
+        collectives.barrier()           # a checkpoint rank 0 is writing is whole
         saved = self.ckpt.restore(map_location=self.model.device)
         if saved is None:
             return False
@@ -188,20 +239,21 @@ class Trainer:
             if step % cfg.log_every_steps == 0:
                 self._sync()
                 self._timings["step"].append(time.perf_counter() - t0)
-                host = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+                host = self._global_scalars(metrics)
                 host["time/fetch"] = float(np.mean(self._timings["fetch"][-50:]))
                 host["time/step"] = float(np.mean(self._timings["step"][-10:]))
                 host["lr"] = float(self.schedule(self.state.optimizer.updates))
-                self.log_fn(host, step)
+                if self.mesh.rank == 0:
+                    self.log_fn(host, step)
             if val_iter_fn is not None and step % cfg.val_every_steps == 0:
                 val_metrics = self.evaluate(val_iter_fn(), collect_preds=True)
-                self.log_fn({f"val/{k}": v for k, v in val_metrics.items()}, step)
+                if self.mesh.rank == 0:
+                    self.log_fn({f"val/{k}": v for k, v in val_metrics.items()}, step)
                 acc = val_metrics.get("answer_acc_at1", 0.0)
                 if acc > self.best_acc:
                     self.best_acc = acc
-                    self.ckpt.save(step, self.state.state_dict(),
-                                   {"answer_acc_at1": float(acc)})
-                    if self.last_predictions:
+                    self._save(step, {"answer_acc_at1": float(acc)})
+                    if self.last_predictions and self.mesh.rank == 0:
                         path = os.path.join(cfg.ckpt_dir, "best_val_pred_answers.csv")
                         with open(path, "w", newline="") as fh:
                             w = csv.writer(fh)
@@ -210,11 +262,12 @@ class Trainer:
             if max_steps is not None and step >= max_steps:
                 break
             t_fetch = time.perf_counter()
-        self.ckpt.save(step, self.state.state_dict())
+        self._save(step)
         return self.state
 
     def evaluate(self, val_iter: Iterable, collect_preds: bool = False
                  ) -> Dict[str, float]:
+        """Metrics over ``val_iter``'s global batches, equal on every rank."""
         tag = self.cfg.model.situation_loss_tag
         agg: Dict[str, list] = {}
         sit_agg: Dict[str, list] = {}

@@ -48,7 +48,9 @@ def test_port_imports_nothing_of_jax():
                 # BLIP-2 stage 1, retrieval and the model zoo
                 "train.contrastive", "models.blip2_qformer", "eval.retrieval",
                 "models.opt", "models.blip2_opt", "ckpt_compat.opt", "models.med",
-                "ckpt_compat.med", "models.vit", "ckpt_compat.vit", "ckpt_compat.from_jax"))
+                "ckpt_compat.med", "models.vit", "ckpt_compat.vit", "ckpt_compat.from_jax",
+                # data parallelism
+                "parallel", "parallel.collectives", "parallel.mesh"))
             } <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
@@ -102,7 +104,7 @@ def test_every_cuda_source_has_a_signature_and_a_wrapper():
 @pytest.mark.parametrize("group", ["DataConfig", "SparseConfig", "ModelConfig",
                                    "LangConfig", "LossConfig", "TrainConfig",
                                    "LogConfig", "EvalConfig", "QFormerConfig",
-                                   "T5Config", "Blip2Config"])
+                                   "T5Config", "Blip2Config", "MeshConfig"])
 def test_config_groups_match_reference(group):
     """Same field names, order and defaults as the reference's groups, so one
     set of overrides configures both packages."""
@@ -130,6 +132,33 @@ def test_apply_overrides_matches_reference_without_yaml():
         assert dataclasses.asdict(getattr(j, g)) == dataclasses.asdict(getattr(t, g)), g
     with pytest.raises(KeyError):
         tconfig.apply_overrides(tconfig.Config(), ["sparse.no_such_key=1"])
+
+
+def test_load_config_raises_on_an_unknown_group_as_the_reference(tmp_path):
+    """A misspelt group raises the reference's error in both packages (the
+    port used to drop it and load ``train.batch_size`` 32)."""
+    path = tmp_path / "typo.yaml"
+    path.write_text("trian:\n  batch_size: 3\n")
+    errors = []
+    for load in (jconfig.load_config, tconfig.load_config):
+        with pytest.raises(KeyError, match="Unknown config key 'trian'") as e:
+            load(str(path))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+
+
+def test_every_config_file_loads_in_both_packages():
+    """Every ``configs/*.yaml`` loads in both packages with the same groups
+    the port has, the ``mesh`` group included."""
+    import pathlib
+    paths = sorted((pathlib.Path(__file__).parents[1] / "configs").glob("*.yaml"))
+    assert len(paths) >= 7
+    for path in paths:
+        j, t = jconfig.load_config(str(path)), tconfig.load_config(str(path))
+        for g in (f.name for f in dataclasses.fields(t)):
+            assert dataclasses.asdict(getattr(j, g)) == dataclasses.asdict(getattr(t, g)), \
+                (path.name, g)
+    assert tconfig.load_config(options=["mesh.model_parallel=2"]).mesh.model_parallel == 2
 
 
 def test_blip2_overrides_match_reference_without_yaml():
