@@ -22,7 +22,14 @@ bert-base, EVA-CLIP-g and CLIP-L forwards, small float32 models held against
 the CPU), and data parallelism (``ddp``: two ranks sharing the card under
 gloo, SIG3D and stage-1 steps held bit-equal across the ranks and against one
 process; ``cli.train --task stage1`` under ``torch.distributed.run`` with
-NCCL against plain ``cli.train``) — and checks what comes out.
+NCCL against plain ``cli.train``), and the last slice (``sortplan``: the
+sort-based plan equal to the dense one in extent, and a full-width SIG3D
+forward on scan-sized rooms past the grid extent; ``openscene``: OpenScene
+files through ``FusedFeatureLoader``, the full-width MinkUNet loaded from a
+reference-format checkpoint, one training-form step against the plain route,
+segmentation scoring; ``lstm``: ``cli.train`` / ``cli.eval`` with the GloVe +
+LSTM encoder; ``multiview``: ENet on 5 frames and the back-projection with
+its deterministic backward) — and checks what comes out.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA device, ``nvcc`` and no network. Exits non-zero when any phase
@@ -34,7 +41,8 @@ JSON line per phase, the card's name and power limit, one JSON object
 ``--only device,kernels`` runs a subset of the phases (a first check of a
 changed kernel; ``--only blip2`` the 3D-LLM alone, ``--only blip2_stage1``
 stage 1, retrieval and the model zoo, ``--only device,ddp`` data
-parallelism); the contract lines are
+parallelism, ``--only device,sortplan,openscene,lstm,multiview`` the last
+slice); the contract lines are
 printed only by a full run. The
 ``kernels`` phase holds ``fused_sparse_conv`` to its plain version at every
 conv class of the encoder (the SIG3D forward's total), of the decoder and of
@@ -66,7 +74,11 @@ bits, k5 grid) are read around one forward (41 conv launches around one whole-UN
 ``segment_plan`` around
 one training step with the scene encoder unfrozen (the path that runs the
 conv backward), those of ``fps`` around one VoteNet forward; the counters are
-set to 0 just before and read just after.
+set to 0 just before and read just after. Each record also carries the
+launches of the last slice's paths, counted the same way: one SIG3D forward
+on the sort plan (``sortplan``), the training-form whole-UNet forward and its
+backward (``openscene``), one multiview back-projection with its backward
+(``multiview``).
 """
 from __future__ import annotations
 
@@ -85,6 +97,9 @@ from situation3d_tpu_torch.cli import infer as cli_infer
 from situation3d_tpu_torch.cli import score as cli_score
 from situation3d_tpu_torch.cli import train as cli_train
 from situation3d_tpu_torch.config import Config, apply_overrides
+from situation3d_tpu_torch.ckpt_compat.minkunet import (convert_minkunet,
+                                                       random_reference_state_dict)
+from situation3d_tpu_torch.data.openscene_loader import FusedFeatureLoader
 from situation3d_tpu_torch.data.prefetch import make_train_pipeline
 from situation3d_tpu_torch.data.scannet_preprocess import ScannetDatasetConfig
 from situation3d_tpu_torch.data.sqa3d import SQA3DDataset, batch_iterator, load_scene
@@ -97,12 +112,16 @@ from situation3d_tpu_torch.device import tree_to_device
 from situation3d_tpu_torch.eval.detection import (APCalculator,
                                                   parse_groundtruths,
                                                   parse_predictions)
+from situation3d_tpu_torch.eval.segmentation import evaluate as seg_evaluate
+from situation3d_tpu_torch.eval.segmentation import (precompute_text_features,
+                                                     segment_points)
 from situation3d_tpu_torch.eval.serving import SceneCache
 from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
 from situation3d_tpu_torch.eval.retrieval import compute_sim_matrix
 from situation3d_tpu_torch.models.blip2_opt import Blip2OPT, opt_predict_answers
 from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
 from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, generate, predict_answers
+from situation3d_tpu_torch.models.enet import ENetForMultiview
 from situation3d_tpu_torch.models.med import MedBertLMHeadModel, MedBertModel, MedConfig
 from situation3d_tpu_torch.models.opt import OPTConfig
 from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
@@ -112,6 +131,8 @@ from situation3d_tpu_torch.models.votenet import VoteNet
 from situation3d_tpu_torch.ops import native, pointnet2
 from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
                                             gather_rows, map_bits, map_lookup)
+from situation3d_tpu_torch.ops.projection import (CameraIntrinsics, multiview_backproject,
+                                                  project_points)
 from situation3d_tpu_torch.ops.voxelize import voxelize_np, voxelize_torch
 from situation3d_tpu_torch.sparse import conv as sparse_conv
 from situation3d_tpu_torch.sparse.host_plan import build_host_plan, compare_with_device_plan
@@ -125,7 +146,7 @@ from situation3d_tpu_torch.train.blip2_trainer import (Blip2TrainState, blip2_tr
 from situation3d_tpu_torch.train.checkpoint import load_npz_tree
 from situation3d_tpu_torch.train.detection_losses import get_detection_loss
 from situation3d_tpu_torch.train.losses import get_loss
-from situation3d_tpu_torch.train.optim import make_optimizer
+from situation3d_tpu_torch.train.optim import bn_momentum_schedule, make_optimizer
 from situation3d_tpu_torch.train.tasks import RetrievalTask
 from situation3d_tpu_torch.train.trainer import Trainer, create_train_state, train_step
 
@@ -177,20 +198,29 @@ def read_counts() -> dict:
 _flush = None
 
 
+def _flush_buffer() -> torch.Tensor:
+    """256 MiB written before each timed call to evict the L2 cache; made
+    outside inference mode, so a first timing inside it leaves a buffer the
+    timings outside it may write too."""
+    global _flush
+    if _flush is None:
+        with torch.inference_mode(False):
+            _flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    return _flush
+
+
 def time_cuda(fn, iters: int = 5, warmup: int = 2) -> float:
     """Mean milliseconds per call (CUDA events), with the L2 cache evicted
     before every timed call: on the main path a conv's map and a map kernel's
     tables were written long before they are read."""
-    global _flush
-    if _flush is None:
-        _flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    flush = _flush_buffer()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
-        _flush.zero_()
+        flush.zero_()
         s.record()
         fn()
         e.record()
@@ -729,16 +759,14 @@ def device_ms(fn, name_part: str = "conv") -> float:
     in one call of ``fn``, from ``torch.profiler`` (L2 evicted before each
     of 3 calls): the kernel alone, without the host's share of a call. A
     profile that caught no such kernel is taken again (up to three times)."""
-    global _flush
-    if _flush is None:
-        _flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    flush = _flush_buffer()
     fn()
     torch.cuda.synchronize()
     iters = 3
     for _ in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                _flush.zero_()
+                flush.zero_()
                 fn()
             torch.cuda.synchronize()
         us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
@@ -1945,6 +1973,533 @@ def phase_sqa3d(work: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The last slice: the sort-based plan past the grid extent, the training-form
+# MinkUNet on OpenScene files, the GloVe + LSTM encoder, the multiview path
+# ---------------------------------------------------------------------------
+
+# bf16 answer scores, kernel vs plain conv route: each of the 21 conv
+# outputs rounds to bf16 (2^-8), and a rounding that falls the other way moves
+# what follows
+SORT_RTOL = 2e-2
+# metres: 800 x 700 x 150 voxels at 0.02 m, past the 512 x 512 x 256 extent
+SCAN_ROOM = (16.0, 14.0, 3.0)
+SCAN_POINTS = 200000  # points a room (floor, walls, boxes) before voxelization
+OS_SCENES, OS_POINTS, OS_BATCH, OS_FEAT_DIM = 4, 120000, 4, 768
+OS_RTOL = 1e-4        # float32 training-form UNet, kernel vs plain, relative to the largest
+# ScanRefer's frames: 328 x 256 (W x H), features 41 x 32
+MV_VIEWS, MV_IMAGE, MV_POINTS = 5, (256, 328), 40000
+MV_ATOL = 1e-6        # back-projected features: the gather is exact
+LSTM_STEPS = 3
+
+
+def _bottleneck_kernel_vs_plain(model, batch, plan) -> tuple:
+    """The scene encoder's ``feat_bottleneck`` on ``plan`` through the conv
+    kernel and through its plain version: (max abs difference over the valid
+    voxels, the plain route's largest value)."""
+    x = SparseVoxels(batch["voxel_coords"].to(DEV, torch.int32),
+                     batch["voxel_feats"].to(DEV, model.dtype),
+                     batch["voxel_mask"].to(DEV, torch.bool), 1)
+    kern = model.scene_encoder(x, plan, bottleneck_only=True)["feat_bottleneck"]
+    kernel_conv = sparse_conv.fused_sparse_conv
+    sparse_conv.fused_sparse_conv = fused_conv.fused_sparse_conv_plain
+    try:
+        plain = model.scene_encoder(x, plan, bottleneck_only=True)["feat_bottleneck"]
+    finally:
+        sparse_conv.fused_sparse_conv = kernel_conv
+    if not torch.equal(kern.mask, plain.mask) or not bool(kern.mask.any()):
+        fail("sortplan: the two conv routes' bottlenecks differ in their voxels, or hold none")
+    m = kern.mask
+    k, p = kern.feats.float()[m], plain.feats.float()[m]
+    return float((k - p).abs().max()), float(p.abs().max())
+
+
+def _plan_device_ms(coords, mask, sp, **flags) -> float:
+    return time_cuda(lambda: build_unet_plan(coords, mask, sp.capacities,
+                                             tuple(sp.grid_extent), device=DEV, **flags), 3, 1)
+
+
+def _plans_equal(got, want) -> list:
+    """Names of the plan tensors that differ."""
+    bad = [f"level{i}/{k}" for i, (g, w) in enumerate(zip(got["levels"], want["levels"]))
+           for k in sorted(set(g) | set(w)) if k not in g or k not in w
+           or not torch.equal(g[k], w[k])]
+    return bad + [f"overflow/{k}" for k in want["overflow"]
+                  if not torch.equal(got["overflow"][k], want["overflow"][k])]
+
+
+def scan_room_batch(cfg, B: int, rng) -> dict:
+    """The ``forward`` phase's batch with its voxels replaced by B rooms of
+    ``SCAN_ROOM`` (floor, walls and boxes as ``make_detection_arrays`` builds
+    them) voxelized at ``data.voxel_size``; each sample keeps a random subset
+    of ``capacities[0]`` voxels, as the data pipeline does."""
+    batch, _, _ = make_scene_batch(cfg, B, rng, DEV)
+    rooms = make_detection_arrays(B, SCAN_POINTS, rng, room=SCAN_ROOM)["point_clouds"]
+    cap = cfg.sparse.capacities[0]
+    coords = np.zeros((B, cap, 3), np.int32)
+    mask = np.zeros((B, cap), bool)
+    for b in range(B):
+        vc = voxelize_np(rooms[b], cfg.data.voxel_size)[0]
+        keep = np.sort(rng.permutation(len(vc))[:cap])
+        coords[b, :len(keep)], mask[b, :len(keep)] = vc[keep], True
+    batch["voxel_coords"] = torch.as_tensor(coords, device=DEV)
+    batch["voxel_mask"] = torch.as_tensor(mask, device=DEV)
+    batch["voxel_feats"] = torch.as_tensor(rng.rand(B, cap, 3).astype(np.float32) * 255
+                                           * mask[..., None], device=DEV)
+    return batch
+
+
+def phase_sortplan(cfg, batch) -> dict:
+    """(a) The ``forward`` phase's in-extent batch: the plan built with
+    ``dense_lookup=false`` and with ``dense_downsample=false`` equals the
+    default plan tensor for tensor (the reference's pin
+    ``test_dense_lookup_matches_sort_path``); each plan's device time.
+    (b) B scan-sized rooms past ``grid_extent``: the dense plan's
+    ``extent_misses`` beside the sort plan's (0); the full-width bf16 SIG3D
+    forward on the sort plan (finite answers; its kernel launches), against
+    the same forward with the plain conv route on the card: the scene
+    encoder's ``feat_bottleneck`` within ``FEAT_RTOL`` of the plain route's
+    (beside the same reading on the in-extent batch, the control) and the
+    answers within ``SORT_RTOL``."""
+    sp = cfg.sparse
+    t_phase = time.perf_counter()
+    coords, mask = batch["voxel_coords"], batch["voxel_mask"]
+    with torch.inference_mode():
+        dense = build_unet_plan(coords, mask, sp.capacities, tuple(sp.grid_extent), device=DEV)
+        plans_ms = {"dense": _plan_device_ms(coords, mask, sp)}
+        for name, flags in (("sort", dict(dense_lookup=False)),
+                            ("sort_downsample", dict(dense_downsample=False))):
+            plan = build_unet_plan(coords, mask, sp.capacities, tuple(sp.grid_extent),
+                                   device=DEV, **flags)
+            bad = _plans_equal(plan, dense)
+            if bad:
+                fail(f"sortplan in extent: the {name} plan differs from the dense plan "
+                     f"at {bad[:6]}")
+            plans_ms[name] = _plan_device_ms(coords, mask, sp, **flags)
+        if int(dense["overflow"]["extent_misses"].sum()) != 0:
+            fail("sortplan: the forward phase's batch is not inside the extent")
+    del dense, plan
+    emit("sortplan_in_extent", batch_size=BATCH, plans_equal=True,
+         plan_device_ms={k: round(v, 4) for k, v in plans_ms.items()})
+
+    room = scan_room_batch(cfg, BATCH, np.random.RandomState(SEED + 50))
+    scfg = apply_overrides(cfg, ["sparse.dense_lookup=false"])
+    rc, rm = room["voxel_coords"], room["voxel_mask"]
+    with torch.inference_mode():
+        dense = build_unet_plan(rc, rm, sp.capacities, tuple(sp.grid_extent), device=DEV)
+        sort = build_unet_plan(rc, rm, sp.capacities, tuple(sp.grid_extent), device=DEV,
+                               dense_lookup=False)
+        room_ms = {"dense": _plan_device_ms(rc, rm, sp),
+                   "sort": _plan_device_ms(rc, rm, sp, dense_lookup=False)}
+    misses = {k: p["overflow"]["extent_misses"].tolist() for k, p in
+              (("dense", dense), ("sort", sort))}
+    dropped = {k: p["overflow"]["voxels_dropped"].tolist() for k, p in
+               (("dense", dense), ("sort", sort))}
+    if not (min(misses["dense"]) > 0 and max(misses["sort"]) == 0):
+        fail(f"sortplan room: extent_misses {misses}: the room is not past the extent, "
+             "or the sort plan missed voxels")
+    extent_span = (rc.max(dim=1).values.max(dim=0).values + 1).tolist()
+    del dense
+
+    model = SIG3D(scfg, num_answers=cfg.data.num_answers, dtype=torch.bfloat16, device=DEV)
+    init_random_weights(model, SEED)
+    B = rc.shape[0]
+    draws = make_sample_draws(B, sp.capacities[-1], cfg.model.num_scene_tokens,
+                              torch.Generator().manual_seed(SEED + 51), DEV)
+    with torch.inference_mode():
+        model(room, sample_draws=draws)
+        torch.cuda.synchronize()
+        reset_counts()                       # just before the path ...
+        out = model(room, sample_draws=draws)
+        torch.cuda.synchronize()
+        counts = read_counts()               # ... and just after
+        scores = out["answer_scores"]
+        if not bool(torch.isfinite(scores).all()):
+            fail("sortplan room: answer_scores are not finite")
+        expected = {name: 0 for name in KERNEL_COUNTERS}
+        expected.update({"fused_sparse_conv": 1 + 4 + 2 * sum(sp.layers[:4]),
+                         "gather_rows": 1, "scatter_add_rows": 2, "segment_plan": 1})
+        if counts != expected:
+            fail(f"sortplan room: kernel launches of one forward {counts} != {expected}")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model(room, sample_draws=draws)
+        torch.cuda.synchronize()
+        fwd_s = (time.perf_counter() - t0) / 3
+        kernel_conv = sparse_conv.fused_sparse_conv
+        sparse_conv.fused_sparse_conv = fused_conv.fused_sparse_conv_plain
+        try:
+            plain = model(room, sample_draws=draws)["answer_scores"]
+        finally:
+            sparse_conv.fused_sparse_conv = kernel_conv
+        # the encoder's output itself, kernel vs plain conv route: on the
+        # rooms' sort plan, and on the in-extent batch's plan as the control
+        feat_err, feat_scale = _bottleneck_kernel_vs_plain(model, room, sort)
+        in_plan = build_unet_plan(coords, mask, sp.capacities, tuple(sp.grid_extent),
+                                  device=DEV, dense_lookup=False)
+        ctrl_err, ctrl_scale = _bottleneck_kernel_vs_plain(model, batch, in_plan)
+    del sort, in_plan
+    for what, e, sc in (("rooms", feat_err, feat_scale), ("in-extent control", ctrl_err,
+                                                          ctrl_scale)):
+        if not e <= FEAT_RTOL * max(sc, 1e-6):
+            fail(f"sortplan {what}: feat_bottleneck kernel vs plain conv route max abs err "
+                 f"{e} > {FEAT_RTOL} x {sc}")
+    err = float((scores - plain).abs().max())
+    scale = float(plain.abs().max())
+    if not err <= SORT_RTOL * scale:
+        fail(f"sortplan room: answers kernel vs plain conv route max abs err {err} > "
+             f"{SORT_RTOL} x {scale}")
+    emit("sortplan_room", batch_size=B, room_m=list(SCAN_ROOM), voxel_span=extent_span,
+         extent=list(sp.grid_extent), extent_misses=misses, voxels_dropped=dropped,
+         plan_device_ms={k: round(v, 4) for k, v in room_ms.items()},
+         launches_per_forward=counts, seconds_per_forward=round(fwd_s, 5),
+         feat_bottleneck_kernel_vs_plain_max_abs_err=feat_err,
+         feat_bottleneck_max_abs=feat_scale, in_extent_feat_bottleneck_max_abs_err=ctrl_err,
+         in_extent_feat_bottleneck_max_abs=ctrl_scale, feat_rtol=FEAT_RTOL,
+         answers_kernel_vs_plain_max_abs_err=err, answers_max_abs=scale, rtol=SORT_RTOL,
+         phase_seconds=round(time.perf_counter() - t_phase, 2))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_openscene_files(root: str) -> tuple:
+    """``OS_SCENES`` ScanNet-style rooms of ``OS_POINTS`` points
+    (``make_detection_arrays``; colours in [-1, 1], labels 0..19 with ~5%
+    -100) as ``{root}/3d/{train,val}/{scene}_vh_clean_2.pth`` and their fused
+    2D features ``{root}/feat/{scene}_{k}.pt`` (``feat`` float16 [n, 768]
+    over the ``mask_full`` points; two occurrences for the first scene).
+    The last scene is the val split. Returns (3d dir, feature dir)."""
+    import os
+    rng = np.random.RandomState(SEED + 70)
+    rooms = make_detection_arrays(OS_SCENES, OS_POINTS, rng)["point_clouds"]
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(root, "3d", split), exist_ok=True)
+    os.makedirs(os.path.join(root, "feat"), exist_ok=True)
+    for i in range(OS_SCENES):
+        sid = f"scene{i:04d}_00"
+        split = "val" if i == OS_SCENES - 1 else "train"
+        labels = rng.randint(0, 20, OS_POINTS).astype(np.int64)
+        labels[rng.rand(OS_POINTS) < 0.05] = -100
+        torch.save((rooms[i] - rooms[i].mean(0), rng.uniform(-1, 1, (OS_POINTS, 3))
+                    .astype(np.float32), labels),
+                   os.path.join(root, "3d", split, f"{sid}_vh_clean_2.pth"))
+        for k in range(2 if i == 0 else 1):
+            seen = rng.rand(OS_POINTS) < 0.6
+            torch.save({"feat": torch.from_numpy(rng.randn(int(seen.sum()), OS_FEAT_DIM)
+                                                 .astype(np.float16)),
+                        "mask_full": torch.from_numpy(seen)},
+                       os.path.join(root, "feat", f"{sid}_{k}.pt"))
+    return os.path.join(root, "3d"), os.path.join(root, "feat")
+
+
+def _stack_items(items, keys) -> dict:
+    return {k: torch.as_tensor(np.stack([it[k] for it in items]), device=DEV) for k in keys}
+
+
+def _rel_max(got: dict, want: dict) -> tuple:
+    """(worst max-abs error over the entries relative to each entry's
+    largest value, its entry)."""
+    worst, where = 0.0, None
+    for k, w in want.items():
+        e = float((got[k].float() - w.float()).abs().max()) / max(float(w.float().abs().max()),
+                                                                  1e-30)
+        if e >= worst:
+            worst, where = e, k
+    return worst, where
+
+
+def phase_openscene(work: str) -> dict:
+    """OpenScene files through ``FusedFeatureLoader`` (augmentation on, the
+    default capacity), the full-width MinkUNet18A (``final_result``, 768-wide
+    ``final``) loaded from a seeded reference-format state dict through
+    ``ckpt_compat/minkunet.py:convert_minkunet``, one training-form forward
+    at B=4 with the schedule's first momentum and the backward of
+    ``sum(openscene_out * R)``, in float32 as the reference trains it, on
+    the points' colours (``input_color``): kernel route against the plain
+    route on the card (outputs and running statistics of a forward each;
+    gradients of a backward each on the kernel route's forward). With
+    all-ones input features the gradient of conv0, whose output is
+    batch-normalized, is a sum that cancels exactly at the centre offset:
+    its rounding, not the kernels, would decide the comparison. Then the val
+    scene's ``eval_all`` item scored with ``eval/segmentation.py``."""
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(full_width_cfg(), ["sparse.final_result=true"])
+    sp = cfg.sparse
+    d3, dfeat = write_openscene_files(f"{work}/openscene")
+    t0 = time.perf_counter()
+    loader = FusedFeatureLoader(d3, dfeat, voxel_size=cfg.data.voxel_size, split="train",
+                                aug_enabled=True, input_color=True,
+                                capacity=sp.capacities[0], seed=SEED)
+    items = [loader[i] for i in range(OS_BATCH)]
+    load_s = time.perf_counter() - t0
+    if len(loader) != OS_SCENES - 1 or loader.list_occur[0] != 2:
+        fail(f"openscene: the loader found {len(loader)} scenes, occurrences {loader.list_occur}")
+    b = _stack_items(items, ("coords", "feats", "mask", "feat_3d", "feat_mask", "labels"))
+    if tuple(b["feat_3d"].shape) != (OS_BATCH, sp.capacities[0], OS_FEAT_DIM) or \
+            not bool(b["feat_mask"].any()) or int(b["labels"].max()) != 255:
+        fail("openscene: the loader's items have the wrong shape, no visible voxel "
+             "or no ignored label")
+
+    sd = random_reference_state_dict(sp, np.random.RandomState(SEED + 71))
+    params, stats = convert_minkunet(sd, sp.layers, final_result=True)
+    net = MinkUNet(sp).to(DEV)
+    unused = load_jax_variables(net, params, stats)
+    if unused:
+        fail(f"openscene: converted leaves the UNet did not use: {unused[:5]}")
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    momentum = bn_momentum_schedule(cfg.train, 0)
+    x = SparseVoxels(b["coords"], b["feats"], b["mask"], 1)
+    R = torch.randn(OS_BATCH, sp.capacities[0], sp.out_channels,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED + 72), device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                           # just before the path ...
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plan = build_unet_plan(x.coords, x.mask, sp.capacities, tuple(sp.grid_extent),
+                               device=DEV)
+    net.zero_grad(set_to_none=True)
+    out = net(x, plan, train=True, momentum=momentum)["openscene_out"].feats
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_counts = read_counts()
+    t0 = time.perf_counter()
+    loss = (out.float() * R).sum()
+    loss.backward(retain_graph=True)
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    all_counts = read_counts()               # ... and just after
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bwd_counts = {k: all_counts[k] - fwd_counts[k] for k in all_counts}
+    n_conv = 1 + 4 + 2 * sum(sp.layers[:4]) + 4 + 2 * sum(sp.layers[4:8])
+    want_fwd = {name: 0 for name in KERNEL_COUNTERS}
+    want_fwd.update({"fused_sparse_conv": n_conv, "k3_map_lookup": 3,
+                     "k3_map_lookup_bits": 1, "k5_map_lookup": 1})
+    if fwd_counts != want_fwd:
+        fail(f"openscene: kernel launches of the plan and the training-form forward "
+             f"{fwd_counts} != {want_fwd}")
+    if bwd_counts["fused_sparse_conv"] != n_conv - 1 or bwd_counts["gather_rows"] < n_conv:
+        fail(f"openscene: backward launches {bwd_counts}: expected {n_conv - 1} conv dx "
+             f"launches (conv0's input takes none) and a dW gather a conv at least")
+    stats_k = {n: v.detach().clone() for n, v in net.named_buffers()}
+    grads_k = {n: p.grad.detach().clone() for n, p in net.named_parameters()
+               if p.grad is not None}
+    moved = [n for n, v in stats_k.items() if torch.equal(v, start[n])]
+    if moved:
+        fail(f"openscene: running statistics that did not move: {moved[:5]}")
+    originals = (sparse_conv.fused_sparse_conv, sparse_conv.gather_rows)
+    sparse_conv.fused_sparse_conv = fused_conv.fused_sparse_conv_plain
+    sparse_conv.gather_rows = gather_rows.gather_rows_plain
+    try:
+        # the backward through the plain versions on the same forward: a
+        # separate plain forward would round some pre-activations near 0 to
+        # the other side of the ReLUs and move the gradients by whole terms
+        net.zero_grad(set_to_none=True)
+        loss.backward()
+        grads_p = {n: p.grad.detach().clone() for n, p in net.named_parameters()
+                   if p.grad is not None}
+        # the forward through the plain versions, from the same start
+        net.load_state_dict(start)
+        with torch.no_grad():
+            out_p = net(x, plan, train=True, momentum=momentum)["openscene_out"].feats
+        stats_p = {n: v.detach().clone() for n, v in net.named_buffers()}
+    finally:
+        sparse_conv.fused_sparse_conv, sparse_conv.gather_rows = originals
+    if set(grads_k) != set(grads_p):
+        fail("openscene: the two routes gave gradients to different parameters")
+    errs = {"openscene_out": _rel_max({"o": out.detach()}, {"o": out_p})[0],
+            "running_stats": _rel_max(stats_k, stats_p),
+            "grads": _rel_max(grads_k, grads_p),
+            "grad_conv0p1s1": _rel_max(grads_k, {"conv0p1s1.kernel":
+                                                 grads_p["conv0p1s1.kernel"]})[0],
+            "grad_bn0": _rel_max(grads_k, {k: grads_p[k] for k in ("bn0.scale",
+                                                                   "bn0.bias")})[0]}
+    emit("openscene_kernel_vs_plain", rtol=OS_RTOL, grad_rtol=GRAD_RTOL, **errs)
+    for k, tol in (("openscene_out", OS_RTOL), ("grad_conv0p1s1", GRAD_RTOL),
+                   ("grad_bn0", GRAD_RTOL)):
+        if not errs[k] <= tol:
+            fail(f"openscene: {k} kernel vs plain route relative err {errs[k]} > {tol}")
+    for k, tol in (("running_stats", OS_RTOL), ("grads", GRAD_RTOL)):
+        if not errs[k][0] <= tol:
+            fail(f"openscene: {k} kernel vs plain route relative err {errs[k]} > {tol}")
+    del out, out_p, loss, R, grads_k, grads_p
+
+    torch.cuda.empty_cache()
+
+    # the val scene, every point scored through its voxel
+    val = FusedFeatureLoader(d3, dfeat, voxel_size=cfg.data.voxel_size, split="val",
+                             input_color=True, capacity=sp.capacities[0], eval_all=True,
+                             seed=SEED)
+    item = val[0]
+    eb = _stack_items([item], ("coords", "feats", "mask"))
+    net.load_state_dict(start)
+    with torch.no_grad():
+        xe = SparseVoxels(eb["coords"], eb["feats"], eb["mask"], 1)
+        pe = build_unet_plan(xe.coords, xe.mask, sp.capacities, tuple(sp.grid_extent),
+                             device=DEV)
+        vox = net(xe, pe)["openscene_out"].feats[0].float().cpu().numpy()
+    text = precompute_text_features(
+        lambda prompts: np.stack([np.random.RandomState(sum(map(ord, p))).randn(OS_FEAT_DIM)
+                                  for p in prompts]))
+    inv, pm = item["inds_reconstruct"], item["point_mask"]
+    scored = pm & (inv < sp.capacities[0])
+    pred = segment_points(vox[inv[scored]], text)
+    seg = seg_evaluate(pred, item["point_labels"][scored])
+    if not (0.0 <= seg["mIoU"] <= 1.0 and np.isfinite(vox).all()):
+        fail(f"openscene eval: mIoU {seg['mIoU']}, finite {np.isfinite(vox).all()}")
+    emit("openscene", scenes=OS_SCENES, points=OS_POINTS, batch_size=OS_BATCH,
+         capacity=sp.capacities[0], overflow=[int(it["overflow"]) for it in items],
+         visible_voxels=int(b["feat_mask"].sum()), load_seconds=round(load_s, 3),
+         momentum=momentum, dtype="float32",
+         launches_forward=fwd_counts, launches_backward=bwd_counts,
+         forward_seconds=round(fwd_s, 4), backward_seconds=round(bwd_s, 4),
+         peak_memory_gb=round(peak, 2), kernel_vs_plain=errs, rtol=OS_RTOL,
+         eval_points_scored=int(scored.sum()), eval_mIoU_random_weights=seg["mIoU"],
+         phase_seconds=round(time.perf_counter() - t_phase, 2))
+    return {"forward": fwd_counts, "backward": bwd_counts}
+
+
+def phase_lstm(work: str) -> None:
+    """``cli.train --task sqa3d`` with ``model.lang_model=lstm`` (GloVe width
+    300, LSTM 768) for 3 steps at full width, B=8, bf16, on SQA3D-layout
+    files, then ``cli.eval`` on its checkpoint."""
+    import os
+    t_phase = time.perf_counter()
+    files = write_sqa3d_room_files(os.path.join(work, "data"))
+    opts = [*FULL_WIDTH, *files, "model.lang_model=lstm", f"train.batch_size={BATCH}",
+            f"eval.batch_size={BATCH}", "train.log_every_steps=1",
+            "train.val_every_steps=1000", f"train.ckpt_dir={work}/ckpt",
+            f"log.log_dir={work}/logs"]
+    cfg = apply_overrides(Config(), opts)
+    reset_counts()
+    with ForwardLaunches() as fw:
+        t0 = time.perf_counter()
+        cli_train.main(["--task", "sqa3d", "--max-steps", str(LSTM_STEPS), "--device", DEV,
+                        "--output", f"{work}/run", "--options", *opts])
+        train_s = time.perf_counter() - t0
+    counts = read_counts()
+    with open(f"{work}/logs/metrics.jsonl") as fh:
+        steps = [r for r in map(json.loads, fh) if "loss" in r]
+    if [r["step"] for r in steps] != list(range(1, LSTM_STEPS + 1)) or \
+            not all(np.isfinite(r["loss"]) for r in steps):
+        fail(f"lstm: training losses {[(r['step'], r.get('loss')) for r in steps]}")
+    _check_forward_launches(fw.calls, "lstm train", counts,
+                            0 if "scene_encoder" in cfg.train.frozen_prefixes else 20)
+    with ForwardLaunches() as fw:
+        res = cli_eval.main(["--task", "sqa3d", "--checkpoint", "latest", "--device", DEV,
+                             "--output", f"{work}/eval", "--options", *opts])
+    metrics = _read_json(f"{work}/eval/metrics.json")
+    if res["step"] != LSTM_STEPS or not 0.0 <= metrics["answer_acc_at1"] <= 1.0:
+        fail(f"lstm eval: step {res['step']}, metrics {metrics}")
+    _check_forward_launches(fw.calls, "lstm eval")
+    emit("lstm", steps=LSTM_STEPS, batch_size=BATCH, hidden=cfg.lang.hidden_size,
+         glove_dim=cfg.lang.glove_dim, losses=[r["loss"] for r in steps],
+         fetch_s=_per_step([r["time/fetch"] for r in steps]),
+         step_s=_per_step([r["time/step"] for r in steps]), train_seconds=round(train_s, 3),
+         launches=counts, eval_answer_acc_at1=metrics["answer_acc_at1"],
+         eval_questions=res["num_questions"], eval_seconds=round(res["eval_seconds"], 4),
+         phase_seconds=round(time.perf_counter() - t_phase, 2))
+    _release()
+
+
+def multiview_cameras(points: torch.Tensor, hw, n_views: int):
+    """``n_views`` cameras at the room's centre, 1.5 m up, turned by equal
+    yaw steps (x right, y down, z forward), intrinsics for an ``hw`` feature
+    map with a 90-degree horizontal field of view, and each view's depth map
+    rendered from the points (the nearest point a pixel; 0 where none)."""
+    H, W = hw
+    intr = CameraIntrinsics(fx=W / 2.0, fy=W / 2.0, cx=(W - 1) / 2.0, cy=(H - 1) / 2.0)
+    centre = points.mean(0).double().cpu().numpy()
+    centre[2] = 1.5
+    w2c, depths = [], []
+    for i in range(n_views):
+        yaw = 2 * np.pi * i / n_views
+        f = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        r = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        R = np.stack([r, np.array([0.0, 0.0, -1.0]), f])
+        m = np.eye(4)
+        m[:3, :3], m[:3, 3] = R, -R @ centre
+        m = torch.as_tensor(m, dtype=torch.float32, device=points.device)
+        pix, valid = project_points(points, m, intr, hw)
+        z = (torch.cat([points, torch.ones_like(points[:, :1])], -1) @ m.T)[:, 2]
+        flat = (pix[:, 0] * W + pix[:, 1]).long()
+        depth = torch.full((H * W,), float("inf"), device=points.device)
+        depth.scatter_reduce_(0, flat[valid], z[valid], "amin")
+        depths.append(torch.where(torch.isinf(depth), 0.0, depth).view(H, W))
+        w2c.append(m)
+    return intr, torch.stack(w2c), torch.stack(depths)
+
+
+def phase_multiview() -> dict:
+    """``ENetForMultiview`` in evaluation form on 5 views of 256 x 328
+    (ScanRefer's frames), features 32 x 41 x 128; ``multiview_backproject``
+    (depth test, ``mean``) of them onto a 40,000-point room and its backward,
+    the gather on ``gather_rows`` and the backward on ``scatter_add_rows``:
+    against the plain versions on the card, and two backward passes
+    bit-equal."""
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED + 80)
+    enet = ENetForMultiview(device=DEV, seed=SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 81)
+    images = torch.rand(MV_VIEWS, *MV_IMAGE, 3, generator=g, device=DEV)
+    with torch.no_grad():
+        feats, logits = enet(images)
+        enet_ms = time_cuda(lambda: enet(images), 5, 2)
+    want = (MV_VIEWS, MV_IMAGE[0] // 8, MV_IMAGE[1] // 8, 128)
+    if tuple(feats.shape) != want or tuple(logits.shape) != want[:3] + (41,) or \
+            not bool(torch.isfinite(feats).all()):
+        fail(f"multiview: ENet features {tuple(feats.shape)} (want {want}) or not finite")
+    room = make_detection_arrays(1, MV_POINTS, np.random.RandomState(SEED + 82))
+    points = torch.as_tensor(room["point_clouds"][0], device=DEV)
+    intr, w2c, depths = multiview_cameras(points, want[1:3], MV_VIEWS)
+    R = torch.randn(MV_POINTS, 128, generator=g, device=DEV)
+
+    def run():
+        f2d = feats.detach().clone().requires_grad_(True)
+        out = multiview_backproject(points, f2d, w2c, intr, depths, "mean")
+        (out * R).sum().backward()
+        return out.detach(), f2d.grad
+
+    run()
+    torch.cuda.synchronize()
+    reset_counts()                           # just before the path ...
+    out, grad = run()
+    torch.cuda.synchronize()
+    counts = read_counts()                   # ... and just after
+    _, grad2 = run()
+    want_counts = {name: 0 for name in KERNEL_COUNTERS}
+    want_counts.update({"gather_rows": 1, "scatter_add_rows": 1, "segment_plan": 1})
+    if counts != want_counts:
+        fail(f"multiview: kernel launches {counts} != {want_counts}")
+    if not torch.equal(grad, grad2):
+        fail("multiview: the gradients of two backward passes differ (not deterministic)")
+    seen = int((out.abs().sum(1) > 0).sum())
+    if seen == 0:
+        fail("multiview: no point is seen by any view")
+    originals = (gather_rows.gather_rows, gather_rows.scatter_add_rows)
+    gather_rows.gather_rows = gather_rows.gather_rows_plain
+    gather_rows.scatter_add_rows = gather_rows.scatter_add_rows_plain
+    try:
+        p_out, p_grad = run()
+    finally:
+        gather_rows.gather_rows, gather_rows.scatter_add_rows = originals
+    f_err = float((out - p_out).abs().max())
+    g_err = float((grad - p_grad).abs().max())
+    if not (f_err <= MV_ATOL and g_err <= SUM_ATOL * max(float(p_grad.abs().max()), 1.0)):
+        fail(f"multiview: kernel vs plain features {f_err} (<= {MV_ATOL}), gradients {g_err}")
+    t_proj = time_cuda(lambda: multiview_backproject(points, feats, w2c, intr, depths, "mean"),
+                       5, 2)
+    t_step = time_cuda(run, 3, 1)
+    emit("multiview", views=MV_VIEWS, image=list(MV_IMAGE), features=list(want),
+         points=MV_POINTS, points_seen=seen, enet_eval_ms=round(enet_ms, 4),
+         backproject_ms=round(t_proj, 4), backproject_and_backward_ms=round(t_step, 4),
+         launches=counts, features_kernel_vs_plain_max_abs_err=f_err,
+         grad_kernel_vs_plain_max_abs_err=g_err, grads_bit_equal=True,
+         phase_seconds=round(time.perf_counter() - t_phase, 2))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # The 3D-LLM (BLIP-2 Q-Former + FlanT5-XL) at full width
 # ---------------------------------------------------------------------------
 
@@ -2889,7 +3444,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
                     "device,kernels,forward,train,serving,minkunet,detection,sqa3d,"
-                    "blip2,blip2_stage1,ddp,reference")
+                    "sortplan,openscene,lstm,multiview,blip2,blip2_stage1,ddp,reference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2898,7 +3453,8 @@ def main() -> int:
         return 1
     phases = [p for p in args.only.split(",") if p] or \
         ["device", "kernels", "forward", "train", "serving", "minkunet", "detection",
-         "sqa3d", "blip2", "blip2_stage1", "ddp", "reference"]
+         "sqa3d", "sortplan", "openscene", "lstm", "multiview", "blip2", "blip2_stage1",
+         "ddp", "reference"]
     full_run = not args.only
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
@@ -2924,6 +3480,17 @@ def main() -> int:
     if "sqa3d" in phases:
         with tempfile.TemporaryDirectory() as work:
             phase_sqa3d(work)
+    sort_counts, os_counts, mv_counts = {}, {}, {}
+    if "sortplan" in phases:
+        sort_counts = phase_sortplan(cfg, batch)
+    if "openscene" in phases:
+        with tempfile.TemporaryDirectory() as work:
+            os_counts = phase_openscene(work)
+    if "lstm" in phases:
+        with tempfile.TemporaryDirectory() as work:
+            phase_lstm(work)
+    if "multiview" in phases:
+        mv_counts = phase_multiview()
     if "blip2" in phases:
         with tempfile.TemporaryDirectory() as work:
             phase_blip2(work)
@@ -2973,6 +3540,10 @@ def main() -> int:
              "library_note": r.get("library",
                                    "no single PyTorch call computes this function"),
              "path": path, "per": "sum over this kernel's launches on that path"}
+        k["launches_sort_plan_forward"] = sort_counts[name]
+        k["launches_training_unet_forward"] = os_counts["forward"][name]
+        k["launches_training_unet_backward"] = os_counts["backward"][name]
+        k["launches_multiview_forward_backward"] = mv_counts[name]
         if name in ("gather_rows", "scatter_add_rows", "segment_plan"):
             k["launches_votenet_forward"] = det_counts["forward"][name]
             k["launches_votenet_forward_backward"] = det_counts["forward_backward"][name]

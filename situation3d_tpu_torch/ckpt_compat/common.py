@@ -44,3 +44,9 @@ def dense(sd: Dict[str, np.ndarray], name: str, bias: bool = True) -> Dict[str, 
 def layernorm(sd: Dict[str, np.ndarray], name: str) -> Dict[str, Any]:
     return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
 
+
+
+def strip_prefix(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    """The entries under ``prefix``, with the prefix taken off their names."""
+    plen = len(prefix)
+    return {k[plen:]: v for k, v in sd.items() if k.startswith(prefix)}

@@ -4,7 +4,7 @@
 model's ``params`` and ``batch_stats`` trees as nested dicts of NUMPY arrays
 (this module imports no JAX) and fills a port model (``SIG3D``, ``VoteNet``,
 ``Blip2T5``, ``Blip2Qformer``, ``Blip2OPT``, ``OPTForCausalLM``, the MED and
-ViT models, or any of their parts). The port's module paths equal the
+ViT models, ``ENetForMultiview``, or any of their parts). The port's module paths equal the
 reference's tree paths, so the mapping is by module type:
 
   Dense          kernel [in, out] -> weight [out, in]; bias (where it has one)
@@ -22,6 +22,12 @@ reference's tree paths, so the mapping is by module type:
   MCANLayerNorm  scale; bias
   SparseConv / SparseConv1x1   kernel, layout kept; bias (where it has one)
   SparseBatchNorm, BatchNorm  params scale, bias; batch_stats mean, var
+  enet.Conv      kernel (HWIO), layout kept; bias (where it has one)
+  enet.PReLU     negative_slope
+
+The GloVe + LSTM encoder's cell keeps the reference's eight ``Dense``
+leaves (``ii``/``if``/``ig``/``io`` without bias, ``hi``/``hf``/``hg``/``ho``
+with one), so it maps by the ``Dense`` rule.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from situation3d_tpu_torch.models import enet
 from situation3d_tpu_torch.models.blip2_qformer import (Blip2ITM, Blip2Qformer,
                                                         QFormerTextModel)
 from situation3d_tpu_torch.models.layers import (BatchNorm, Dense, Embed,
@@ -75,6 +82,8 @@ _RULES = {
     SparseConv1x1: [("kernel", "params", "kernel", False), ("bias", "params", "bias", False)],
     SparseBatchNorm: _NORM_RULES,
     BatchNorm: _NORM_RULES,
+    enet.Conv: _leaf_rules("kernel", "bias"),
+    enet.PReLU: _leaf_rules("negative_slope"),
 }
 
 

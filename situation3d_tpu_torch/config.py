@@ -13,8 +13,8 @@ accelerator and the port READS AND IGNORES them. The port keeps one
 formulation per op: every map-driven conv goes through the fused
 gather-GEMM kernel, conv0 runs on its k5 map, and the k3 maps come from the
 two map kernels (``sparse/minkunet.py:build_unet_plan`` says which level
-goes to which). ``dense_lookup`` and ``dense_downsample`` must be on: the
-sort-based plan construction is not ported yet. ``gather_bwd`` is ignored
+goes to which, and how ``dense_lookup`` and ``dense_downsample`` choose
+between the dense-grid and the sort-based plan). ``gather_bwd`` is ignored
 too: the gather-only conv backward is the only one the port has.
 """
 from __future__ import annotations
@@ -71,7 +71,7 @@ class SparseConfig:
     # device decides between the CUDA kernel and its plain version
     pallas_map: Any = True
     pallas_map_bits: Any = True
-    # sort-free downsample (grid occupancy + cumsum); the only one ported
+    # sort-free downsample (grid occupancy + cumsum) under dense_lookup
     dense_downsample: bool = True
     # --- routing fields of the reference: read and ignored by the port ---
     dense_conv_min_stride: int = 0
@@ -100,7 +100,7 @@ class ModelConfig:
     mcan_ff_size: int = 2048
     num_scene_tokens: int = 256
     scene_feat_dim: int = 256          # bottleneck channels
-    lang_model: str = "mpnet"          # "mpnet" | "lstm" (not ported yet)
+    lang_model: str = "mpnet"          # "mpnet" | "lstm" (GloVe + LSTM)
     lang_freeze: str = "last_layer"
     situation_loss_tag: str = "__l2__quat__"
     answer_pdrop: float = 0.3

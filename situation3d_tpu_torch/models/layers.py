@@ -6,7 +6,7 @@ are taken in float32. ``dropout`` draws its mask from an explicit
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -127,14 +127,16 @@ def init_blip2_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
             p.fill_(1.0)
 
 
-def materialise(module: nn.Module, device, seed: int) -> None:
+def materialise(module: nn.Module, device, seed: int,
+                init: Callable[[nn.Module, int], None] = init_blip2_weights) -> None:
     """Place a model built on ``meta`` on ``device`` and fill it with
-    ``init_blip2_weights(seed)``; ``device="meta"`` leaves it for the parent
-    that builds it into a larger model."""
+    ``init(module, seed)`` (``init_blip2_weights`` unless told otherwise; an
+    ``init`` must fill the buffers too); ``device="meta"`` leaves it for the
+    parent that builds it into a larger model."""
     dev = resolve_device(device)
     if dev.type != "meta":
         module.to_empty(device=dev)
-        init_blip2_weights(module, seed)
+        init(module, seed)
         module.eval()
 
 

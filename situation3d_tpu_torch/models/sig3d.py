@@ -8,11 +8,11 @@ per-voxel head comes out as ``openscene_out`` (segmentation eval).
 Submodule names follow the reference's parameter tree (``lang_net``,
 ``scene_encoder``, ``enc_s0``, ``dec_q1``, ``answer_cls_fc1``, ...), so
 ``ckpt_compat/from_jax.py`` carries weights across mechanically.
-``forward(..., train=True)`` turns on dropout (MCAN, AttFlat, the heads; the
-reference's MPNet drops nowhere); the scene encoder's batch norms use running
-statistics in training too, as in the reference, and while none of the
-encoder's parameters requires a gradient the scene tower runs under
-``torch.no_grad()``.
+``forward(..., train=True)`` turns on dropout (MCAN, AttFlat, the heads, the
+LSTM encoder's embeddings; the reference's MPNet drops nowhere); the scene
+encoder's batch norms use running statistics in training too, as in the
+reference, and while none of the encoder's parameters requires a gradient
+the scene tower runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -200,7 +200,9 @@ class SIG3D(nn.Module):
                                        cfg.sparse.grid_extent,
                                        pallas_map=cfg.sparse.pallas_map,
                                        pallas_map_bits=cfg.sparse.pallas_map_bits,
-                                       device=self.device)
+                                       device=self.device,
+                                       dense_lookup=cfg.sparse.dense_lookup,
+                                       dense_downsample=cfg.sparse.dense_downsample)
         frozen = not any(p.requires_grad for p in self.scene_encoder.parameters())
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
             enc = self.scene_encoder(x, plan,
@@ -249,7 +251,7 @@ class SIG3D(nn.Module):
 
         # ---- language branch --------------------------------------------
         s_out, q_out, s_pad, q_pad = self.lang_net(
-            b["s_ids"], b["s_mask"], b["q_ids"], b["q_mask"])
+            b["s_ids"], b["s_mask"], b["q_ids"], b["q_mask"], train, dgen)
 
         # ---- vision branch ----------------------------------------------
         have_tokens = False

@@ -100,6 +100,28 @@ def psum(x: torch.Tensor) -> torch.Tensor:
     return buf.to(x.device)
 
 
+class _PSum(torch.autograd.Function):
+    """``psum`` whose backward sums the cotangents over the processes too:
+    a value every process reads feeds every process's loss."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g)
+
+
+def psum_differentiable(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the processes, differentiated as the sum over
+    the global batch: statistics of the whole batch (``SparseBatchNorm`` in
+    training form) give each process the gradient JAX's pjit gives it."""
+    if not active():
+        return x
+    return _PSum.apply(x)
+
+
 def pmean(x: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over the processes (gradient and metric averaging)."""
     if not active():

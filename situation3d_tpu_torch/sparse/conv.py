@@ -1,7 +1,7 @@
 """Sparse convolution compute + normalization modules (port of
 ``situation3d_tpu/sparse/conv.py``: ``sparse_conv_apply`` with its
-gather-only backward, ``SparseConv``, ``SparseConv1x1``, ``SparseBatchNorm``
-in evaluation form, ``sparse_relu``).
+gather-only backward, ``SparseConv``, ``SparseConv1x1``, ``SparseBatchNorm``,
+``sparse_relu``).
 
 A sparse conv is a sum over kernel offsets of ``gather -> matmul`` over a
 precomputed neighbor map; every map-driven conv goes through
@@ -22,6 +22,7 @@ from torch import nn
 from situation3d_tpu_torch.ops.cuda.fused_conv import fused_sparse_conv
 from situation3d_tpu_torch.ops.cuda.gather_rows import (gather_rows,
                                                         scatter_add_rows)
+from situation3d_tpu_torch.parallel.collectives import psum_differentiable
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
 
 # the gathered rows of one dW chunk stay under this many bytes (conv0's 125
@@ -31,11 +32,12 @@ GATHER_CHUNK_BYTES = 1 << 30
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D) accumulated and returned in float32. bfloat16 products
-    are exact in float32, so upcasting on the CPU is the same arithmetic as
-    the card's bf16-in, f32-out product."""
+    are exact in float32, so upcasting (on the CPU, or where autograd must
+    differentiate the product, which ``torch.mm(..., out_dtype=)`` does not
+    support) is the same arithmetic as the card's bf16-in, f32-out product."""
     if a.dtype == torch.float32:
         return a @ b
-    if a.is_cuda:
+    if a.is_cuda and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
@@ -224,11 +226,23 @@ class SparseConv1x1(nn.Module):
 
 
 class SparseBatchNorm(nn.Module):
-    """Masked batch norm over valid voxels, evaluation form: running
-    statistics, ``(x - mean) * rsqrt(var + eps) * scale + bias`` in float32,
-    masked rows zeroed, then cast. The scene encoder runs it this way in
-    training too, as the reference does; batch statistics come with the
-    slice that trains the encoder alone."""
+    """Masked batch norm over valid voxels (``ME.MinkowskiBatchNorm``):
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` in float32, masked rows
+    zeroed, then cast.
+
+    Evaluation form (``use_running_average``): the running statistics.
+    Training form: the float32 statistics of every valid voxel of the whole
+    batch, ``n = max(sum(mask), 1)``, ``mean = sum(f * m) / n`` and the
+    two-pass biased variance ``sum((f - mean)^2 * m) / n``; gradients flow
+    through them. Under a process group of more than one process the sums
+    run over the global batch (one all-reduce of the sums and the count, then
+    one of the squared deviations), as the reference's pjit takes them. The
+    running statistics then move by ``ra = mom * ra + (1 - mom) * batch``
+    with ``mom`` the call's ``momentum`` (``MOMENTUM`` without one): the
+    reference's convention, the reverse of ``torch.nn.BatchNorm``'s, whose
+    running variance is moreover the unbiased one.
+    """
+    MOMENTUM = 0.9
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -240,9 +254,24 @@ class SparseBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: SparseVoxels) -> SparseVoxels:
-        inv = torch.rsqrt(self.var + self.epsilon) * self.scale
-        out = (x.feats.float() - self.mean) * inv + self.bias
+    def forward(self, x: SparseVoxels, use_running_average: bool = True,
+                momentum: Optional[float] = None) -> SparseVoxels:
+        f = x.feats.float()
+        if use_running_average:
+            mean, var = self.mean, self.var
+        else:
+            m = x.mask[..., None].float()
+            C = f.shape[-1]
+            sums = psum_differentiable(torch.cat([(f * m).sum(dim=(0, 1)), m.sum()[None]]))
+            n = sums[C].detach().clamp(min=1.0)
+            mean = sums[:C] / n
+            var = psum_differentiable(((f - mean).square() * m).sum(dim=(0, 1))) / n
+            mom = self.MOMENTUM if momentum is None else momentum
+            with torch.no_grad():
+                self.mean.mul_(mom).add_((1.0 - mom) * mean)
+                self.var.mul_(mom).add_((1.0 - mom) * var)
+        inv = torch.rsqrt(var + self.epsilon) * self.scale
+        out = (f - mean) * inv + self.bias
         return x.replace(feats=(out * x.mask[..., None]).to(self.dtype))
 
 

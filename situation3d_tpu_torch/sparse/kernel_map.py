@@ -1,5 +1,8 @@
-"""Sparse-convolution coordinate management on dense level grids (port of
-the dense path of ``situation3d_tpu/sparse/kernel_map.py``).
+"""Sparse-convolution coordinate management (port of
+``situation3d_tpu/sparse/kernel_map.py``): the dense level grids, and the
+sort-based path for scenes beyond the grid extent (packed int32 keys sorted
+once a level, neighbour queries as binary searches, a strided downsample as a
+fixed-capacity dedup).
 
 All functions take an explicit batch dimension. Integer outputs are int32
 like the reference's and match it bit for bit.
@@ -16,6 +19,9 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from situation3d_tpu_torch.ops.voxelize import (_SENTINEL, COORD_BOUND,
+                                                pack_coords, voxelize_torch)
 
 
 def kernel_offsets(kernel_size: int) -> np.ndarray:
@@ -66,6 +72,89 @@ def _cumsum_rows(x: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
     totals = y[:, :, -1]
     y += (torch.cumsum(totals, dim=1, dtype=torch.int32) - totals)[:, :, None]
     return y.view(B, -1)[:, :n]
+
+
+def _sorted_key_table(coords: torch.Tensor, mask: torch.Tensor, stride: int):
+    """Sorted packed keys ``[B, V]`` and their original rows (stable: equal
+    keys keep their row order); masked rows take the sentinel key."""
+    keys = pack_coords(_cells(coords, stride))
+    keys = torch.where(mask, keys, torch.full_like(keys, _SENTINEL))
+    return torch.sort(keys, dim=1, stable=True)
+
+
+def _lookup(sorted_keys, sorted_idx, query_keys, query_valid, miss: int):
+    """Row of each query key (the first of equal keys: the lowest original
+    row), ``miss`` where the key is absent or the query is not valid."""
+    B, V = sorted_keys.shape
+    pos = torch.searchsorted(sorted_keys, query_keys.reshape(B, -1), right=False,
+                             out_int32=True).clamp_(max=V - 1).to(torch.int64)
+    hit = (torch.gather(sorted_keys, 1, pos) == query_keys.reshape(B, -1)) \
+        & query_valid.reshape(B, -1)
+    found = torch.gather(sorted_idx, 1, pos).to(torch.int32)
+    return torch.where(hit, found, miss).view(query_keys.shape)
+
+
+def build_kernel_map(
+    in_coords: torch.Tensor,
+    in_mask: torch.Tensor,
+    out_coords: torch.Tensor,
+    out_mask: torch.Tensor,
+    offsets: np.ndarray,
+    in_stride: int,
+    offset_stride: int,
+) -> torch.Tensor:
+    """Neighbour map of a sparse conv by binary search: for output voxel j and
+    offset k the input row at ``out_coords[j] + offsets[k] * offset_stride``,
+    or ``V_in``. A query counts when it is divisible by ``in_stride``, lies in
+    ``[0, COORD_BOUND * in_stride)`` on every axis and its output row is
+    valid.
+
+    Args: in_coords int32 [B, V_in, 3] (multiples of ``in_stride``); in_mask
+    bool [B, V_in]; out_coords int32 [B, V_out, 3]; out_mask bool [B, V_out];
+    offsets int [K, 3]. Returns int32 [B, V_out, K].
+    """
+    v_in = in_coords.shape[1]
+    sorted_keys, sorted_idx = _sorted_key_table(in_coords, in_mask, in_stride)
+    offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int32,
+                           device=out_coords.device) * offset_stride
+    q = out_coords[:, :, None, :] + offs                      # [B, V_out, K, 3]
+    bound = COORD_BOUND * in_stride
+    valid = ((torch.remainder(q, in_stride) == 0) & (q >= 0) & (q < bound)).all(dim=-1) \
+        & out_mask[..., None]
+    qkeys = pack_coords(_cells(q.clamp(0, bound - 1), in_stride))
+    return _lookup(sorted_keys, sorted_idx, qkeys, valid, v_in)
+
+
+def downsample_coords(
+    coords: torch.Tensor,
+    mask: torch.Tensor,
+    stride: int,
+    factor: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Output coords of a strided conv by sort and dedup:
+    ``unique(floor(c / new_stride)) * new_stride`` in ascending key order,
+    ``new_stride = stride * factor``.
+
+    Returns ``(out_coords int32 [B, capacity, 3], out_mask bool [B, capacity],
+    dropped int32 [B])``; ``dropped`` counts the unique cells beyond
+    ``capacity``, which merge into the last slot (the largest key wins).
+    """
+    new_stride = stride * factor
+    uc, um, _, nu = voxelize_torch(_cells(coords, new_stride), mask, capacity)
+    return uc * new_stride, um, (nu - capacity).clamp(min=0)
+
+
+def gather_neighbors(feats: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
+    """Neighbour features with a zero row for misses.
+
+    Args: feats [B, V_in, C]; nbr_idx int32 [B, V_out, K] (miss == V_in).
+    Returns [B, V_out, K, C].
+    """
+    B, _, C = feats.shape
+    padded = torch.cat([feats, feats.new_zeros(B, 1, C)], dim=1)
+    flat = nbr_idx.reshape(B, -1, 1).to(torch.int64).expand(-1, -1, C)
+    return torch.gather(padded, 1, flat).view(*nbr_idx.shape, C)
 
 
 def build_level_grid(

@@ -23,8 +23,9 @@ that field joins the routing fields it reads and ignores.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -38,7 +39,9 @@ from situation3d_tpu_torch.ops.cuda.map_lookup import (k3_map_lookup,
                                                        map_lookup_fits)
 from situation3d_tpu_torch.sparse.conv import (SparseBatchNorm, SparseConv,
                                                SparseConv1x1, sparse_relu)
-from situation3d_tpu_torch.sparse.kernel_map import (build_level_grid,
+from situation3d_tpu_torch.sparse.kernel_map import (build_kernel_map,
+                                                     build_level_grid,
+                                                     downsample_coords,
                                                      downsample_with_down_map,
                                                      kernel_offsets,
                                                      lookup_kernel_map_dense)
@@ -55,10 +58,11 @@ def build_unet_plan(
     pallas_map: Any = True,
     pallas_map_bits: Any = True,
     device="cuda",
+    dense_lookup: bool = True,
+    dense_downsample: bool = True,
 ) -> Dict[str, Any]:
     """Build all coordinate sets and kernel maps for the UNet, batched, on
-    ``device`` (dense-grid lookups + sort-free downsample; the sort-based
-    fallback is not ported yet).
+    ``device``.
 
     Args:
       coords: int32 [B, V0, 3] stride-1 voxel coords (padded).
@@ -66,18 +70,25 @@ def build_unet_plan(
       capacities: per-stride voxel budgets for strides (1, 2, 4, 8, 16).
       pallas_map / pallas_map_bits: the reference's switches for its two
         k3-map kernels; any true value enables the route here.
+      dense_lookup: maps from dense level grids over ``extent`` (voxels
+        outside it get no neighbours and are counted in ``extent_misses``);
+        false: the sort-based maps, which take any coords below
+        ``COORD_BOUND`` per axis (scenes beyond the extent).
+      dense_downsample: with ``dense_lookup``, the sort-free downsample that
+        writes the k2 down and up maps in the same pass; otherwise the
+        downsample sorts and the k2 maps are looked up like the k3 maps.
 
-    Routing of the k3 maps mirrors the reference so both frameworks send the
-    same level to the same kernel: the int32-grid kernel where
-    ``map_lookup_fits`` holds, else the bit-table kernel where the level is
-    dense-downsampled (``i >= 1``) and ``map_bits_fits`` holds, else the
-    plain dense lookup. At the default extent: level 1 -> bits, levels 2-4
-    -> grid. This is routing parity with the reference, not a limit of the
-    card. Level 0's k5 map, which the reference builds with its XLA dense
-    lookup, goes through the int32-grid kernel with the 125 k5 offsets: the
-    same function, whose one pass also writes the level's k3 map (the
-    reference slices it out of the k5 map). The tensors' device decides
-    kernel vs plain version.
+    Routing of the maps mirrors the reference so both frameworks send the
+    same level to the same kernel. With ``dense_lookup``: level 0's k5 map
+    (the reference's XLA dense lookup, which slices its k3 map out of it) goes
+    through the int32-grid kernel with the 125 k5 offsets, whose one pass also
+    writes the k3 map; a level's k3 map goes to the int32-grid kernel where
+    ``map_lookup_fits`` holds, else to the bit-table kernel where the level
+    was dense-downsampled (``i >= 1``) and ``map_bits_fits`` holds, else to
+    the plain dense lookup. At the default extent: level 1 -> bits (grid
+    lookup without ``dense_downsample``), levels 2-4 -> grid. Without
+    ``dense_lookup`` no map kernel runs. The tensors' device decides kernel
+    vs plain version.
 
     Returns a dict:
       levels: list over strides of {coords, mask, map_k3}; level 0 also has
@@ -93,27 +104,54 @@ def build_unet_plan(
     B = coords.shape[0]
     overflow = {"voxels_dropped": torch.zeros(B, dtype=torch.int32, device=dev),
                 "extent_misses": torch.zeros(B, dtype=torch.int32, device=dev)}
+    k2, k3 = kernel_offsets(2), kernel_offsets(3)
 
     levels = [{"coords": coords, "mask": mask}]
     for i in range(1, len(STRIDES)):
         prev = levels[i - 1]
-        c, m, dropped, dmap, umap = downsample_with_down_map(
-            prev["coords"], prev["mask"], STRIDES[i - 1], 2, capacities[i], extent)
-        levels.append({"coords": c, "mask": m, "map_down": dmap})
-        prev["map_up"] = umap
+        if dense_lookup and dense_downsample:
+            c, m, dropped, dmap, umap = downsample_with_down_map(
+                prev["coords"], prev["mask"], STRIDES[i - 1], 2, capacities[i], extent)
+            levels.append({"coords": c, "mask": m, "map_down": dmap})
+            prev["map_up"] = umap
+        else:
+            c, m, dropped = downsample_coords(prev["coords"], prev["mask"],
+                                              STRIDES[i - 1], 2, capacities[i])
+            levels.append({"coords": c, "mask": m})
         overflow["voxels_dropped"] += dropped
 
+    if not dense_lookup:
+        k3_in_k5 = [int(np.flatnonzero((kernel_offsets(5) == o).all(1))[0]) for o in k3]
+        for i, lvl in enumerate(levels):
+            s = STRIDES[i]
+            if i == 0:
+                lvl["map_k5"] = build_kernel_map(coords, mask, coords, mask,
+                                                 kernel_offsets(5), 1, 1)
+                lvl["map_k3"] = lvl["map_k5"][:, :, k3_in_k5].contiguous()
+            else:
+                lvl["map_k3"] = build_kernel_map(lvl["coords"], lvl["mask"], lvl["coords"],
+                                                 lvl["mask"], k3, s, s)
+                fine = levels[i - 1]
+                lvl["map_down"] = build_kernel_map(fine["coords"], fine["mask"], lvl["coords"],
+                                                   lvl["mask"], k2, STRIDES[i - 1],
+                                                   STRIDES[i - 1])
+                fine["map_up"] = build_kernel_map(lvl["coords"], lvl["mask"], fine["coords"],
+                                                  fine["mask"], -k2, s, STRIDES[i - 1])
+        return {"levels": levels, "overflow": overflow}
+
+    prev_grid = None
     for i, lvl in enumerate(levels):
         s = STRIDES[i]
         v_in = lvl["coords"].shape[1]
         cells = tuple(e // s for e in extent)
         n_cells = cells[0] * cells[1] * cells[2]
         use_grid = i >= 1 and bool(pallas_map) and map_lookup_fits(n_cells, cells[2])
-        use_bits = (i >= 1 and not use_grid and bool(pallas_map_bits)
+        use_bits = (i >= 1 and dense_downsample and not use_grid and bool(pallas_map_bits)
                     and map_bits_fits(n_cells, cells[2]))
         # a level served by the bit tables needs no grid; it is a
         # dense-downsampled level, whose voxels all lie inside the extent, so
         # it adds nothing to extent_misses
+        grid = None
         if not use_bits:
             grid, misses = build_level_grid(lvl["coords"], lvl["mask"], s, extent)
             overflow["extent_misses"] += misses
@@ -128,10 +166,20 @@ def build_unet_plan(
             lvl["map_k3"] = k3_map_lookup_bits(bits, pfx, lvl["coords"] // s,
                                                lvl["mask"], cells, v_in)
         else:
-            lvl["map_k3"] = lookup_kernel_map_dense(
-                grid, v_in, lvl["coords"], lvl["mask"], kernel_offsets(3), s, s,
+            lvl["map_k3"] = lookup_kernel_map_dense(grid, v_in, lvl["coords"], lvl["mask"],
+                                                    k3, s, s, extent)
+        if i > 0 and "map_down" not in lvl:
+            # the sorted downsample: the k2 maps from the two levels' grids
+            fine, sf = levels[i - 1], STRIDES[i - 1]
+            lvl["map_down"] = lookup_kernel_map_dense(
+                prev_grid, fine["coords"].shape[1], lvl["coords"], lvl["mask"], k2, sf, sf,
                 extent)
-        grid = None   # free the level's grid before the next one is built
+            fine["map_up"] = lookup_kernel_map_dense(
+                grid, v_in, fine["coords"], fine["mask"], -k2, s, sf, extent)
+        # keep this level's grid for the next level's k2 maps only when the
+        # downsample did not write them
+        prev_grid = None if dense_downsample else grid
+        grid = None
     return {"levels": levels, "overflow": overflow}
 
 
@@ -153,14 +201,16 @@ class BasicBlock(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, x: SparseVoxels, nbr_idx) -> SparseVoxels:
+    def forward(self, x: SparseVoxels, nbr_idx, train: bool = False,
+                momentum: Optional[float] = None) -> SparseVoxels:
+        bn = dict(use_running_average=not train, momentum=momentum)
         residual = x
         out = self.conv1(x, nbr_idx, x.coords, x.mask, x.stride)
-        out = sparse_relu(self.norm1(out))
+        out = sparse_relu(self.norm1(out, **bn))
         out = self.conv2(out, nbr_idx, out.coords, out.mask, out.stride)
-        out = self.norm2(out)
+        out = self.norm2(out, **bn)
         if self.downsample_conv is not None:
-            residual = self.downsample_norm(self.downsample_conv(residual))
+            residual = self.downsample_norm(self.downsample_conv(residual), **bn)
         return sparse_relu(out.replace(feats=out.feats + residual.feats))
 
 
@@ -173,9 +223,10 @@ class ResLayer(nn.Module):
                 in_channels if i == 0 else planes, planes, dtype=dtype))
         self.num_blocks = num_blocks
 
-    def forward(self, x: SparseVoxels, nbr_idx) -> SparseVoxels:
+    def forward(self, x: SparseVoxels, nbr_idx, train: bool = False,
+                momentum: Optional[float] = None) -> SparseVoxels:
         for i in range(self.num_blocks):
-            x = getattr(self, f"block{i}")(x, nbr_idx)
+            x = getattr(self, f"block{i}")(x, nbr_idx, train, momentum)
         return x
 
 
@@ -189,17 +240,16 @@ DECODER = (("convtr4p16s2", "bntr4", "block5", 4, 4, "out_b3p8"),
 
 
 class MinkUNet(nn.Module):
-    """MinkUNet18A; its batch norms are always in evaluation form. Submodule
-    names follow the reference's parameter tree (``conv0p1s1``, ``bn0``,
-    ``conv1p1s2``, ..., ``block4``, ``convtr4p16s2``, ``bntr4``, ...,
-    ``block8``, ``final``)."""
+    """MinkUNet18A. Submodule names follow the reference's parameter tree
+    (``conv0p1s1``, ``bn0``, ``conv1p1s2``, ..., ``block4``,
+    ``convtr4p16s2``, ``bntr4``, ..., ``block8``, ``final``). Its batch norms
+    take the running statistics unless ``forward(..., train=True)``, which
+    normalizes with the batch's and moves the running statistics by
+    ``momentum`` (the reference's convention; ``train/optim.py:
+    bn_momentum_schedule`` gives it an epoch's value)."""
 
     def __init__(self, cfg: SparseConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if not (cfg.dense_lookup and cfg.dense_downsample):
-            raise NotImplementedError(
-                "the sort-based plan construction (sparse.dense_lookup=false or "
-                "sparse.dense_downsample=false) is not ported yet")
         self.cfg = cfg
         self.dtype = dtype
         d = cfg.init_dim
@@ -227,35 +277,38 @@ class MinkUNet(nn.Module):
     def _decoder(self):
         return DECODER if self.cfg.final_result else DECODER[:2]
 
-    def forward(self, x: SparseVoxels, plan: Dict[str, Any],
+    def forward(self, x: SparseVoxels, plan: Dict[str, Any], train: bool = False,
+                momentum: Optional[float] = None,
                 bottleneck_only: bool = False) -> Dict[str, Any]:
         """Returns ``feat_bottleneck`` (stride 16), ``feat_layer5`` (8),
         ``feat_layer6`` (4) and, under ``final_result``, ``openscene_out``
         (stride 1, ``out_channels``); only the first if
-        ``bottleneck_only``."""
+        ``bottleneck_only``. ``train`` puts every batch norm in training
+        form."""
         L = plan["levels"]
+        bn = dict(use_running_average=not train, momentum=momentum)
         x = x.replace(feats=x.feats.to(self.dtype))
         h = self.conv0p1s1(x, L[0]["map_k5"], L[0]["coords"], L[0]["mask"], 1)
-        h = sparse_relu(self.bn0(h))
+        h = sparse_relu(self.bn0(h, **bn))
         skips = {"out_p1": h}
         for i in range(1, 5):
             conv = getattr(self, f"conv{i}p{STRIDES[i - 1]}s2")
             h = conv(h, L[i]["map_down"], L[i]["coords"], L[i]["mask"], STRIDES[i],
                      transpose_map=L[i - 1]["map_up"])
-            h = sparse_relu(getattr(self, f"bn{i}")(h))
-            h = getattr(self, f"block{i}")(h, L[i]["map_k3"])
+            h = sparse_relu(getattr(self, f"bn{i}")(h, **bn))
+            h = getattr(self, f"block{i}")(h, L[i]["map_k3"], train, momentum)
             skips[f"out_b{i}p{STRIDES[i]}"] = h
         out = {"feat_bottleneck": h}
         if bottleneck_only:
             return out
-        for conv, bn, layer, _, i, skip in self._decoder():
+        for conv, norm, layer, _, i, skip in self._decoder():
             # the transposed conv: level i's map_up gathers from level i, its
             # backward runs on level i's map_down
             h = getattr(self, conv)(h, L[i - 1]["map_up"], L[i - 1]["coords"],
                                     L[i - 1]["mask"], STRIDES[i - 1],
                                     transpose_map=L[i]["map_down"])
-            h = sparse_relu(getattr(self, bn)(h)).cat(skips[skip])
-            h = getattr(self, layer)(h, L[i - 1]["map_k3"])
+            h = sparse_relu(getattr(self, norm)(h, **bn)).cat(skips[skip])
+            h = getattr(self, layer)(h, L[i - 1]["map_k3"], train, momentum)
             if layer in ("block5", "block6"):
                 out[f"feat_layer{layer[-1]}"] = h
         if self.cfg.final_result:

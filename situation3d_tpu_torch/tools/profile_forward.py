@@ -119,7 +119,8 @@ def profile_plan(args, cfg, batch) -> dict:
     with torch.inference_mode():
         return _profiled(lambda: build_unet_plan(
             batch["voxel_coords"], batch["voxel_mask"], sp.capacities,
-            tuple(sp.grid_extent), device="cuda"), args.runs)
+            tuple(sp.grid_extent), device="cuda", dense_lookup=sp.dense_lookup,
+            dense_downsample=sp.dense_downsample), args.runs)
 
 
 def profile_train(args, cfg, card) -> dict:
@@ -516,7 +517,8 @@ def main() -> int:
         stages["forward_total"], _ = _timed(lambda: model(batch, sample_draws=draws), args.runs)
         stages["plan_build"], plan = _timed(lambda: build_unet_plan(
             batch["voxel_coords"], batch["voxel_mask"], sp.capacities, sp.grid_extent,
-            device="cuda"), args.runs)
+            device="cuda", dense_lookup=sp.dense_lookup,
+            dense_downsample=sp.dense_downsample), args.runs)
         x = SparseVoxels(batch["voxel_coords"], batch["voxel_feats"].to(torch.bfloat16),
                          batch["voxel_mask"], 1)
         stages["sparse_encoder"], enc = _timed(

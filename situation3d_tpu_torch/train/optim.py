@@ -87,8 +87,9 @@ LR_SCHEDULES = {"step": step_schedule, "multistep": multistep_schedule,
 
 def bn_momentum_schedule(cfg: TrainConfig, epoch: int) -> float:
     """BN momentum decay: ``init * decay^(epoch // step)`` floored at 0.01,
-    returned as the running-average weight ``1 - momentum``. No batch norm of
-    this slice reads it (the scene encoder's stay in evaluation form)."""
+    returned as the running-average weight ``1 - momentum``: the ``momentum``
+    of ``MinkUNet(..., train=True, momentum=...)`` (SIG3D keeps its scene
+    encoder's batch norms in evaluation form, as the reference does)."""
     m = max(cfg.bn_momentum_init
             * cfg.bn_momentum_decay ** (epoch // max(cfg.bn_momentum_step, 1)), 0.01)
     return 1.0 - m

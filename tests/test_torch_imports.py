@@ -25,7 +25,7 @@ def test_port_imports_nothing_of_jax():
     """Import every port module in a fresh interpreter and look at
     ``sys.modules``: no jax, flax, optax, orbax, transformers, yaml, nor the
     JAX package."""
-    assert len(PORT_MODULES) >= 84, PORT_MODULES
+    assert len(PORT_MODULES) >= 90, PORT_MODULES
     assert {"situation3d_tpu_torch.cli.train", "situation3d_tpu_torch.ops.cuda.gather_rows",
             "situation3d_tpu_torch.ops.cuda.fps", "situation3d_tpu_torch.ops.pointnet2",
             "situation3d_tpu_torch.ops.nn_distance",
@@ -50,7 +50,10 @@ def test_port_imports_nothing_of_jax():
                 "models.opt", "models.blip2_opt", "ckpt_compat.opt", "models.med",
                 "ckpt_compat.med", "models.vit", "ckpt_compat.vit", "ckpt_compat.from_jax",
                 # data parallelism
-                "parallel", "parallel.collectives", "parallel.mesh"))
+                "parallel", "parallel.collectives", "parallel.mesh",
+                # the last slice: reference checkpoints, OpenScene data, multiview
+                "ckpt_compat.minkunet", "ckpt_compat.mpnet", "data.augmentation",
+                "data.openscene_loader", "models.enet", "ops.projection"))
             } <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
@@ -220,6 +223,7 @@ ENTRY_POINTS = {
     "EvaViT": lambda kw: _zoo("vit", "EvaViT")(_zoo("vit", "ViTConfig")(**_TINY_VIT), **kw),
     "ClipViT": lambda kw: _zoo("vit", "ClipViT")(
         _zoo("vit", "ViTConfig")(model_name="clip_L", **_TINY_VIT), **kw),
+    "ENetForMultiview": lambda kw: _zoo("enet", "ENetForMultiview")(num_classes=7, **kw),
     "SIG3D": lambda kw: __import__(
         "situation3d_tpu_torch.models.sig3d", fromlist=["SIG3D"]).SIG3D(_tiny(), 5, **kw),
     "build_unet_plan": lambda kw: __import__(
@@ -286,10 +290,14 @@ def test_training_entry_point_defaults_to_cuda_and_raises_without_a_card(name, t
 
 
 def test_unported_options_say_so():
+    """The options earlier slices refused build now (the GloVe + LSTM
+    encoder, the sort-based plans); what stays unported, T5 tensor
+    parallelism, says so."""
     from situation3d_tpu_torch.models.sig3d import SIG3D
-    for opt, word in (("model.lang_model=lstm", "lstm"),
-                      ("sparse.dense_lookup=false", "sort-based"),
-                      ("sparse.dense_downsample=false", "sort-based")):
+    from situation3d_tpu_torch.parallel.mesh import make_mesh
+    for opt in ("model.lang_model=lstm", "sparse.dense_lookup=false",
+                "sparse.dense_downsample=false"):
         cfg = tconfig.apply_overrides(_tiny(), [opt])
-        with pytest.raises(NotImplementedError, match=word):
-            SIG3D(cfg, 5, device="cpu")
+        assert isinstance(SIG3D(cfg, 5, device="cpu"), SIG3D)
+    with pytest.raises(NotImplementedError, match="model_parallel"):
+        make_mesh(tconfig.MeshConfig(model_parallel=2), "cpu")

@@ -74,8 +74,11 @@ def test_mpnet_encoder_and_lang_module():
         _close(g, w)
     for g, w in zip(got[2:], want[2:]):
         np.testing.assert_array_equal(t2n(g), np.asarray(w))
-    with pytest.raises(NotImplementedError, match="lstm"):
-        tlang.LangModule(LangConfig(**kw), model="lstm")
+    # the other encoder is the GloVe + LSTM one (tests/test_torch_lstm.py)
+    assert isinstance(tlang.LangModule(LangConfig(**kw), model="lstm").encoder,
+                      tlang.GloveLSTMEncoder)
+    with pytest.raises(ValueError, match="lang_model"):
+        tlang.LangModule(LangConfig(**kw), model="bert")
 
 
 def test_mcan_layernorm_is_not_nn_layernorm():

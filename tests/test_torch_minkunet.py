@@ -129,8 +129,25 @@ def test_minkunet_bottleneck_only_stops_at_the_bottleneck():
 
 
 def test_minkunet_refuses_unported_options():
-    """The sort-based plan construction is not ported."""
-    for option in ("sparse.dense_lookup=false", "sparse.dense_downsample=false"):
-        _, tcfg = tiny_cfgs((option,))
-        with pytest.raises(NotImplementedError):
-            MinkUNet(tcfg.sparse)
+    """Nothing is refused any more: the sort-based plan options build the
+    UNet, and in extent its outputs on their plans equal the dense plan's."""
+    _, tcfg = tiny_cfgs()
+    ts = tcfg.sparse
+    b = scene_batch(np.random.RandomState(4), tcfg, 2, n_vox=200)
+    x = SparseVoxels(torch.from_numpy(b["voxel_coords"]),
+                     torch.from_numpy(b["voxel_feats"]),
+                     torch.from_numpy(b["voxel_mask"]), 1)
+    net = MinkUNet(ts).eval()
+    with torch.no_grad():
+        dense = net(x, build_unet_plan(x.coords, x.mask, ts.capacities, ts.grid_extent,
+                                       device="cpu"))
+        for option in ("sparse.dense_lookup=false", "sparse.dense_downsample=false"):
+            _, ocfg = tiny_cfgs((option,))
+            os_ = ocfg.sparse
+            other = MinkUNet(os_).eval()
+            other.load_state_dict(net.state_dict())
+            plan = build_unet_plan(x.coords, x.mask, os_.capacities, os_.grid_extent,
+                                   device="cpu", dense_lookup=os_.dense_lookup,
+                                   dense_downsample=os_.dense_downsample)
+            for k, v in other(x, plan).items():
+                assert torch.equal(v.feats, dense[k].feats), (option, k)

@@ -19,7 +19,12 @@ process computes the references, and the tests read the ranks' results.
   one process that saw every value;
 - retrieval at world 2: the ranks' score matrices summed equal the JAX
   package's per-rank matrices summed (its merge contract, scores within 1e-5
-  of the largest), and recall equals the one-process evaluation.
+  of the largest), and recall equals the one-process evaluation;
+- a training-form ``SparseBatchNorm`` at world 2 (the ranks hold different
+  numbers of valid voxels) takes the statistics of the whole batch, as the
+  reference's ``SparseBatchNorm`` on the global batch: outputs and running
+  statistics within 1e-6, the ranks' feature gradients and their summed
+  parameter gradients within 1e-5 of ``jax.grad`` of the global loss.
 """
 import jax
 import jax.numpy as jnp
@@ -42,6 +47,7 @@ from situation3d_tpu_torch.parallel import (batch_sharding, make_mesh, replicate
                                             shard_batch)
 from situation3d_tpu_torch.train import tasks as ttasks
 from situation3d_tpu_torch.train.logging import MetricLogger, SmoothedValue
+from test_torch_batchnorm_train import _bn_case, jax_batchnorm_step
 from torch_port_util import BLIP2_TINY, blip2_cfgs, load_into_port, random_variables_of
 
 torch.set_num_threads(1)
@@ -86,6 +92,10 @@ def run(tmp_path_factory):
          "batch": {"a": np.arange(12).reshape(6, 2), "b": rng.rand(6, 3, 2)},
          "values": [[(1.0, 1), (2.5, 2), (4.0, 1)], [(7.0, 3), (-1.0, 1)]],
          "retrieval": retrieval}
+    feats, mask, bn_vars, R = _bn_case(5, B=4, V=30, C=6)
+    mask[:2, 20:] = False                 # the ranks hold different valid counts
+    p["batchnorm"] = {"feats": feats, "mask": mask, "R": R, "momentum": 0.8,
+                      "state": {**bn_vars["params"], **bn_vars["batch_stats"]}}
     started = W.start("parallel", p, tmp_path_factory.mktemp("parallel"))
 
     # the references, while the ranks run
@@ -121,6 +131,7 @@ def run(tmp_path_factory):
     ref["merged"] = [parts[0][i] + parts[1][i] for i in range(2)]
     task = ttasks.RetrievalTask(tcfg, k_test=K_TEST, device="cpu")
     ref["recall"] = task.evaluation(tm_, *retrieval["args"], *retrieval["pairs"])
+    ref["batchnorm"] = jax_batchnorm_step(feats, mask, bn_vars, R, 0.8)
     return p, ref, W.finish(started)
 
 
@@ -218,3 +229,16 @@ def test_retrieval_merges_ranks_by_a_sum(run):
             assert np.abs(got[~fill] - want[~fill]).max() <= atol
     assert ranks[0]["retrieval"]["metrics"] == ref["recall"]
     assert ranks[1]["retrieval"]["metrics"] == {}
+
+
+def test_batchnorm_takes_the_statistics_of_the_whole_batch(run):
+    _, ref, ranks = run
+    out, stats, gf, gp = ref["batchnorm"]
+    got = [r["batchnorm"] for r in ranks]
+    np.testing.assert_allclose(np.concatenate([g["out"] for g in got]), out, atol=1e-6)
+    for g in got:
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(g[k], stats[k], atol=1e-6)
+    np.testing.assert_allclose(np.concatenate([g["feats_grad"] for g in got]), gf, atol=1e-5)
+    for k in ("scale", "bias"):
+        np.testing.assert_allclose(sum(g[f"{k}_grad"] for g in got), gp[k], atol=1e-5)

@@ -137,7 +137,27 @@ def parallel_job(rank, world, p):
     out["logger"] = ml.global_avg()
 
     out["retrieval"] = p["retrieval"] and _retrieval(rank, world, p["retrieval"])
+    out["batchnorm"] = _batchnorm(rank, world, p["batchnorm"])
     return out
+
+
+def _batchnorm(rank, world, p):
+    """A training-form ``SparseBatchNorm`` on this rank's rows of the global
+    batch, and the backward of ``sum(out * R)`` over them."""
+    from situation3d_tpu_torch.sparse.conv import SparseBatchNorm
+    from situation3d_tpu_torch.sparse.tensor import SparseVoxels
+    bn = SparseBatchNorm(p["feats"].shape[-1])
+    with torch.no_grad():
+        for k, v in p["state"].items():
+            getattr(bn, k).copy_(torch.from_numpy(v))
+    feats = torch.from_numpy(_rows(p["feats"], rank, world)).requires_grad_(True)
+    mask = torch.from_numpy(_rows(p["mask"], rank, world))
+    x = SparseVoxels(torch.zeros(*mask.shape, 3, dtype=torch.int32), feats, mask, 1)
+    out = bn(x, use_running_average=False, momentum=p["momentum"])
+    (out.feats * torch.from_numpy(_rows(p["R"], rank, world))).sum().backward()
+    return {"out": out.feats.detach().numpy(), "mean": bn.mean.numpy(),
+            "var": bn.var.numpy(), "feats_grad": feats.grad.numpy(),
+            "scale_grad": bn.scale.grad.numpy(), "bias_grad": bn.bias.grad.numpy()}
 
 
 def _retrieval(rank, world, p):

@@ -374,3 +374,30 @@ def fake_blip2_state_dict(bcfg, orig_vocab, rng):
         dense(f"{b}.output_query.dense", H, I)
         norm(f"{b}.output_query.LayerNorm", H)
     return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# Reference-format (torch) state dicts of SIG3D's encoders, seeded
+# ---------------------------------------------------------------------------
+
+def fake_mpnet_state_dict(lc, rng, prefix=""):
+    """An HF MPNet state dict (``embeddings.*``, ``encoder.layer.N.attention
+    .attn.q.weight`` ...) at the widths of the ``LangConfig`` ``lc``."""
+    H, I = lc.hidden_size, lc.intermediate_size
+    sd = {"embeddings.word_embeddings.weight": rng.randn(lc.vocab_size, H),
+          "embeddings.position_embeddings.weight": rng.randn(lc.max_position, H),
+          "embeddings.LayerNorm.weight": 1 + 0.1 * rng.randn(H),
+          "embeddings.LayerNorm.bias": 0.1 * rng.randn(H),
+          "encoder.relative_attention_bias.weight": rng.randn(
+              lc.relative_attention_num_buckets, lc.num_heads)}
+    for i in range(lc.num_layers):
+        b = f"encoder.layer.{i}"
+        for n, (o, k) in (("attention.attn.q", (H, H)), ("attention.attn.k", (H, H)),
+                          ("attention.attn.v", (H, H)), ("attention.attn.o", (H, H)),
+                          ("intermediate.dense", (I, H)), ("output.dense", (H, I))):
+            sd[f"{b}.{n}.weight"] = rng.randn(o, k) / np.sqrt(k)
+            sd[f"{b}.{n}.bias"] = 0.1 * rng.randn(o)
+        for n in ("attention.LayerNorm", "output.LayerNorm"):
+            sd[f"{b}.{n}.weight"] = 1 + 0.1 * rng.randn(H)
+            sd[f"{b}.{n}.bias"] = 0.1 * rng.randn(H)
+    return {prefix + k: np.asarray(v, np.float32) for k, v in sd.items()}
