@@ -1,0 +1,2 @@
+"""Kernel launches the host issued in the profiled steps, a sample."""
+from benchmarks.metrics._common import launches_per_unit as read  # noqa: F401
