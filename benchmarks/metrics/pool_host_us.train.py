@@ -1,0 +1,5 @@
+"""Host time of ``sig3d.pool``, the situated token pooling, in the profiled steps,
+a sample (us)."""
+from benchmarks.metrics._spans import span_us
+
+read = span_us("sig3d.pool", "host")

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from situation3d_tpu_torch.device import resolve_device
+from situation3d_tpu_torch.utils.trace import BATCH, span, spanned
 
 
 class SceneCache:
@@ -37,10 +38,12 @@ class SceneCache:
         fields (batch axis 1). A scene already cached is left alone."""
         if scene_id in self._cache:
             return
-        toks, pos, _ = self.model.encode_scene(scene_batch, sample_draws, generator)
+        with span("serving.encode", request=BATCH):
+            toks, pos, _ = self.model.encode_scene(scene_batch, sample_draws, generator)
         self._cache[scene_id] = (toks, pos)
 
     @torch.no_grad()
+    @spanned("serving.answer", request=BATCH)
     def answer(self, scene_id: str, question_batch: Dict[str, Any]
                ) -> Dict[str, Any]:
         """Answer a batch of questions against one cached scene. The cached

@@ -33,6 +33,7 @@ from situation3d_tpu_torch.models.t5 import (T5ForConditionalGeneration,
                                              sample_decode, shift_right,
                                              t5_cross_entropy)
 from situation3d_tpu_torch.utils.registry import registry
+from situation3d_tpu_torch.utils.trace import BATCH, spanned
 
 _MODEL_KEYS = ("pc_feat", "pc", "pc_mask", "input_ids", "input_mask",
                "labels", "label_mask")
@@ -60,6 +61,7 @@ class Blip2T5(nn.Module):
         return tree_to_device({k: v for k, v in batch.items() if k in _MODEL_KEYS},
                               self.device)
 
+    @spanned("blip2.qformer")
     def encode_scene(self, pc_feat, pc, pc_mask) -> torch.Tensor:
         """Scene features + position encoding -> the query embeddings in T5
         space ([B, num_query_tokens, d_model])."""
@@ -102,6 +104,7 @@ class Blip2T5(nn.Module):
 
 
 @torch.no_grad()
+@spanned("blip2.predict", request=BATCH)
 def predict_answers(model: Blip2T5, batch: Dict[str, Any],
                     max_len: Optional[int] = None) -> torch.Tensor:
     """Greedy generation (beam 1). Returns int64 [B, max_len] token ids."""

@@ -36,6 +36,7 @@ from situation3d_tpu_torch.ops.voxelize import voxelize_torch
 from situation3d_tpu_torch.parallel.mesh import draw
 from situation3d_tpu_torch.sparse.minkunet import MinkUNet, build_unet_plan
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
+from situation3d_tpu_torch.utils.trace import BATCH, span, spanned
 
 ROT_DIMS = {"__quat__": 4, "__angle__": 2, "__6d__": 6}
 _INT32_MAX = 2 ** 31 - 1
@@ -177,6 +178,7 @@ class SIG3D(nn.Module):
             self.scene_encoder.eval()
         return self
 
+    @spanned("sig3d.input")
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The batch's values as tensors on the model's device; a ``plan``
         keeps its structure."""
@@ -195,7 +197,7 @@ class SIG3D(nn.Module):
                          mask=b["voxel_mask"].to(torch.bool), stride=1)
         plan = b.get("plan")
         if plan is None:
-            with torch.no_grad():                     # integer bookkeeping
+            with span("sig3d.plan"), torch.no_grad():     # integer bookkeeping
                 plan = build_unet_plan(x.coords, x.mask, cfg.sparse.capacities,
                                        cfg.sparse.grid_extent,
                                        pallas_map=cfg.sparse.pallas_map,
@@ -204,11 +206,12 @@ class SIG3D(nn.Module):
                                        dense_lookup=cfg.sparse.dense_lookup,
                                        dense_downsample=cfg.sparse.dense_downsample)
         frozen = not any(p.requires_grad for p in self.scene_encoder.parameters())
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+        with span("sig3d.encoder"), torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
             enc = self.scene_encoder(x, plan,
                                      bottleneck_only=not cfg.sparse.final_result)
         return enc, plan.get("overflow", {})
 
+    @spanned("sig3d.pool")
     def _pool_tokens(self, bott: SparseVoxels, sample_draws, generator):
         N = self.cfg.model.num_scene_tokens
         if sample_draws is None:
@@ -237,43 +240,50 @@ class SIG3D(nn.Module):
         """``train`` turns dropout on; its masks come from
         ``dropout_generator`` (``generator`` when that is not given), the
         token sampling from ``sample_draws`` or ``generator``."""
-        cfg = self.cfg
-        dgen = dropout_generator if dropout_generator is not None else generator
+        with span("sig3d.forward", request=BATCH, top=True):
+            dgen = dropout_generator if dropout_generator is not None else generator
+            out: Dict[str, Any] = {}
+            b = self._to_device(batch)
+
+            # ---- language branch ----------------------------------------
+            with span("sig3d.language"):
+                lang = self.lang_net(b["s_ids"], b["s_mask"], b["q_ids"], b["q_mask"],
+                                     train, dgen)
+
+            # ---- vision branch ------------------------------------------
+            tokens = None
+            if "scene_tokens" in b:
+                # multi-question serving: the scene tower ran once per scene
+                # (encode_scene); this pass reuses its pooled tokens
+                tokens = b["scene_tokens"].to(self.dtype), b["scene_token_positions"]
+            elif not self.cfg.model.no_3d:
+                enc, overflow = self._run_scene_encoder(b)
+                for k, v in overflow.items():
+                    out[f"overflow/{k}"] = v.sum()
+                if "openscene_out" in enc:
+                    # per-voxel CLIP-space features for segmentation eval
+                    # (eval.py:293-297: openscene_out @ text_features.T)
+                    out["openscene_out"] = enc["openscene_out"].feats
+                tokens = self._pool_tokens(enc["feat_bottleneck"], sample_draws, generator)
+
+            with span("sig3d.fusion"):
+                return self._fuse(out, b, lang, tokens, train, dgen)
+
+    def _fuse(self, out: Dict[str, Any], b: Dict[str, Any], lang, tokens, train: bool,
+              dgen) -> Dict[str, Any]:
+        """From the language features and the scene tokens (None without a
+        scene) to the outputs: situated re-encoding, MCAN, the heads."""
+        mc = self.cfg.model
+        tag = mc.situation_loss_tag
+        s_out, q_out, s_pad, q_pad = lang
+        have_tokens = tokens is not None
 
         def head(x, name, pdrop=0.1):
             x = F.gelu(getattr(self, f"{name}_fc1")(x))
             return getattr(self, f"{name}_fc2")(dropout(x, pdrop, train, dgen))
 
-        mc = cfg.model
-        tag = mc.situation_loss_tag
-        out: Dict[str, Any] = {}
-        b = self._to_device(batch)
-
-        # ---- language branch --------------------------------------------
-        s_out, q_out, s_pad, q_pad = self.lang_net(
-            b["s_ids"], b["s_mask"], b["q_ids"], b["q_mask"], train, dgen)
-
-        # ---- vision branch ----------------------------------------------
-        have_tokens = False
-        if "scene_tokens" in b:
-            # multi-question serving: the scene tower ran once per scene
-            # (encode_scene); this pass reuses its pooled tokens
-            tok_feats = b["scene_tokens"].to(self.dtype)
-            positions = b["scene_token_positions"]
-            have_tokens = True
-        elif not mc.no_3d:
-            enc, overflow = self._run_scene_encoder(b)
-            for k, v in overflow.items():
-                out[f"overflow/{k}"] = v.sum()
-            if "openscene_out" in enc:
-                # per-voxel CLIP-space features for segmentation eval
-                # (eval.py:293-297: openscene_out @ text_features.T)
-                out["openscene_out"] = enc["openscene_out"].feats
-            tok_feats, positions = self._pool_tokens(enc["feat_bottleneck"],
-                                                     sample_draws, generator)
-            have_tokens = True
-
         if have_tokens:
+            tok_feats, positions = tokens
             out["scene_positions"] = positions
             out["att_feat_pre"] = tok_feats
             gt = b["auxiliary_task"].float()

@@ -32,6 +32,7 @@ from situation3d_tpu_torch.models.relpos import (relative_position_bucket,
                                                  relative_position_matrix)
 from situation3d_tpu_torch.parallel import collectives
 from situation3d_tpu_torch.parallel.mesh import draw
+from situation3d_tpu_torch.utils.trace import span, spanned
 
 NEG_INF = -1e9
 
@@ -255,6 +256,7 @@ class T5ForConditionalGeneration(nn.Module):
     def embed(self, ids):
         return self.shared(ids)
 
+    @spanned("t5.encoder")
     def encode(self, inputs_embeds, mask):
         return self.encoder(inputs_embeds, mask)
 
@@ -464,12 +466,16 @@ def greedy_decode(model: T5ForConditionalGeneration, inputs_embeds, enc_mask,
     out = torch.full((B, max_len), pad_id, dtype=torch.long, device=dev)
     tok = torch.full((B, 1), decoder_start_id, dtype=torch.long, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
+    # a step's span holds its token and the check that ends the loop after it
+    finished = max_len > 0 and bool(done.all())
     for i in range(max_len):
-        if bool(done.all()):
+        if finished:
             break
-        nxt = model.decode_step(enc, enc_mask, tok, cache)[:, -1].argmax(-1)
-        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-        out[:, i] = nxt
-        done = done | (nxt == eos_id)
-        tok = nxt[:, None]
+        with span("t5.decode_step"):
+            nxt = model.decode_step(enc, enc_mask, tok, cache)[:, -1].argmax(-1)
+            nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+            out[:, i] = nxt
+            done = done | (nxt == eos_id)
+            tok = nxt[:, None]
+            finished = i + 1 < max_len and bool(done.all())
     return out

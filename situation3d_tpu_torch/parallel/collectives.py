@@ -23,6 +23,8 @@ from typing import Iterable, List, Optional
 import torch
 import torch.distributed as dist
 
+from situation3d_tpu_torch.utils.trace import span
+
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
@@ -199,16 +201,17 @@ def pmean_grads(params: Iterable[torch.nn.Parameter]) -> None:
     unfrozen SIG3D training) are left out and keep ``None``."""
     if not active():
         return
-    by_dtype: dict = {}
-    for p in params:
-        if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
-        flat = pmean(torch.cat([g.reshape(-1) for g in grads]))
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset: offset + g.numel()].view_as(g))
-            offset += g.numel()
+    with span("train.allreduce"):
+        by_dtype: dict = {}
+        for p in params:
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = pmean(torch.cat([g.reshape(-1) for g in grads]))
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset: offset + g.numel()].view_as(g))
+                offset += g.numel()
 
 
 def token_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:

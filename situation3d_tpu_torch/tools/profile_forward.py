@@ -11,10 +11,9 @@ Run from the repository root on a machine with one CUDA device:
 
 With ``--model blip2`` it times the 3D-LLM (Blip2T5 at the default widths,
 bf16 compute) at ``bench.py``'s shapes: greedy decoding of 10 tokens at
-``--batch`` (5,120 scene tokens, a 64-token prompt) split into scene
-encoder, T5 encoder and decode steps, and one frozen-T5 training step at
-B=4 split into forward + loss, backward and optimizer; it profiles one
-greedy decode and one training step.
+``--batch`` (5,120 scene tokens, a 64-token prompt), and one frozen-T5
+training step at B=4, that one also split into forward + loss, backward and
+optimizer; it profiles one greedy decode and one training step.
 
 With ``--model stage1`` it profiles BLIP-2 stage 1 and the OPT zoo at the
 default widths, bf16 compute: one stage-1 ``Blip2Qformer`` optimizer step at
@@ -22,32 +21,39 @@ default widths, bf16 compute: one stage-1 ``Blip2Qformer`` optimizer step at
 scenes x 32 captions (``k_test`` 16), and a ``Blip2OPT`` (OPT-2.7B) greedy
 decode of 10 tokens at ``--batch`` after prompts of up to 32 tokens.
 
-With ``--train`` it times one training step of that configuration (scene
-encoder frozen, the default, or trained too) split into forward, backward
-and optimizer, and profiles one whole step. With ``--model votenet`` it times
-the evaluation-form forward of the detector (float32) and its stages — the
-five sampling launches, the radius queries, the gathers, the pointwise MLPs
-with their pooling, the 3-NN search, the loss — and the training form's
-forward + loss and backward, and profiles one forward and one forward +
-backward. The SIG3D forward's JSON holds ``plan_build``, a profile of the plan
-build alone (``build_unet_plan``: host ms, device-busy ms, launches, top
-kernels, peak memory).
+With ``--train`` it times and profiles one training step of that
+configuration (scene encoder frozen, the default, or trained too). With
+``--model votenet`` it times the evaluation-form forward of the detector
+(float32) and its stages — the five sampling launches, the radius queries,
+the gathers, the pointwise MLPs with their pooling, the 3-NN search, the
+loss — and the training form's forward + loss and backward, and profiles one
+forward and one forward + backward.
 
-Prints one JSON object: the card's name and power limit, host-clock stage
-times (each stage ends in ``torch.cuda.synchronize()``; median of a few
-runs), the device-busy share of one forward and the top device kernels by
-time from ``torch.profiler``, and a digest of the forward's ``answer_scores``.
-With ``--out`` it also writes the Chrome trace.
-Weights are random (seeded); the batch is the pinned synthetic scene batch.
+Prints one JSON object: the card's name and power limit, the host-clock
+time of the whole call (between two ``torch.cuda.synchronize()``; median of
+a few runs), and from ``torch.profiler``'s profile of one call its
+device-busy time, launches, top device kernels by time and peak memory. The
+SIG3D forward, the SIG3D training step and the greedy decode split into
+stages by the port's spans (``utils/trace.py``) in that same profile: each
+``stages`` entry is a span's host ms (its wall time), device ms (the kernels,
+copies and sets launched inside it, child spans included, the backward's
+from autograd's thread too) and calls, of a call run as it is served, with
+no synchronize inside. VoteNet, stage 1 and the 3D-LLM's training step have
+no spans: their stages each end in a synchronize. The forward's JSON also
+holds a digest of its ``answer_scores``. With ``--out`` it also writes the
+Chrome trace. Weights are random (seeded); the batch is the pinned synthetic
+scene batch.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -55,11 +61,7 @@ import torch
 from situation3d_tpu_torch.config import Config, apply_overrides
 from situation3d_tpu_torch.data.synthetic import make_scene_batch
 from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
-                                                make_sample_draws,
-                                                situated_token_pool)
-from situation3d_tpu_torch.sparse.minkunet import build_unet_plan
-from situation3d_tpu_torch.sparse.tensor import SparseVoxels
-from situation3d_tpu_torch.train.losses import get_loss
+                                                make_sample_draws)
 from situation3d_tpu_torch.train.trainer import create_train_state, train_step
 
 
@@ -88,10 +90,44 @@ def _device_rows(prof):
     return rows
 
 
-def _profiled(fn, runs) -> dict:
+def _device_us(e, mirrors) -> float:
+    """The kernels, copies and sets ``e`` and its children launched (us),
+    less the device-side mirrors of the spans."""
+    return (sum(k.duration for k in e.kernels if k.name not in mirrors)
+            + sum(_device_us(c, mirrors) for c in e.cpu_children))
+
+
+def _span_stages(prof) -> dict:
+    """Host ms, device ms and calls of each of the port's spans in one
+    profile; an operation autograd's thread ran goes to the spans open on
+    the spans' thread where it began."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    spans = [e for e in events if e.device_type == DeviceType.CPU and e.is_user_annotation
+             and not e.name.startswith(("ProfilerStep", "Optimizer."))]
+    names, threads = {e.name for e in spans}, {e.thread for e in spans}
+    stages = defaultdict(lambda: {"host_ms": 0.0, "device_ms": 0.0, "calls": 0})
+    for e in spans:
+        st = stages[e.name]
+        st["host_ms"] += e.time_range.elapsed_us() / 1e3
+        st["device_ms"] += _device_us(e, names) / 1e3
+        st["calls"] += 1
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.cpu_parent is None
+                and e.thread not in threads and not e.is_user_annotation):
+            us = _device_us(e, names)
+            for s in spans:
+                if us and s.time_range.start <= e.time_range.start < s.time_range.end:
+                    stages[s.name]["device_ms"] += us / 1e3
+    return {k: {"host_ms": round(v["host_ms"], 3), "device_ms": round(v["device_ms"], 3),
+                "calls": v["calls"]} for k, v in stages.items()}
+
+
+def _profiled(fn, runs, top: int = 12, trace_path: str = "") -> dict:
     """Host-clocked ms of ``fn`` (median of ``runs``), and from the profile of
-    one call its device-busy ms, device launches, top kernels and peak
-    memory above what was allocated before the call."""
+    one call its device-busy ms, device launches, top kernels, peak memory
+    above what was allocated before the call and the spans' stages; the
+    profile as a Chrome trace at ``trace_path`` if given."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     host_ms, out = _timed(fn, runs)
@@ -105,91 +141,50 @@ def _profiled(fn, runs) -> dict:
     peak = torch.cuda.max_memory_allocated() - base
     del out
     rows = _device_rows(prof)
+    if trace_path:
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        prof.export_chrome_trace(trace_path)
+    busy = sum(r[0] for r in rows)
     return {"host_ms": round(host_ms, 3),
-            "device_busy_ms": round(sum(r[0] for r in rows), 4),
+            "device_busy_ms": round(busy, 4),
+            "device_idle_share": round(max(0.0, 1 - busy / host_ms), 4),
             "launches": sum(r[1] for r in rows),
             "peak_memory_gb": round(peak / 2 ** 30, 3),
+            "stages": _span_stages(prof),
             "top_device_kernels": [{"ms": round(ms, 4), "calls": n, "name": k}
-                                   for ms, n, k in rows[:12]]}
+                                   for ms, n, k in rows[:top]]}
 
 
-def profile_plan(args, cfg, batch) -> dict:
-    """The plan build alone at the configuration's capacities and extent."""
-    sp = cfg.sparse
-    with torch.inference_mode():
-        return _profiled(lambda: build_unet_plan(
-            batch["voxel_coords"], batch["voxel_mask"], sp.capacities,
-            tuple(sp.grid_extent), device="cuda", dense_lookup=sp.dense_lookup,
-            dense_downsample=sp.dense_downsample), args.runs)
+def _write(args, name: str, result: dict) -> None:
+    print(json.dumps(result))
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, name), "w") as fh:
+            json.dump(result, fh, indent=1)
+
+
+def _trace_path(args, name: str) -> str:
+    return os.path.join(args.out, name) if args.out else ""
 
 
 def profile_train(args, cfg, card) -> dict:
-    """Stage times of one training step (each stage ends in a synchronize;
-    median over ``--runs`` steps after 3 warm-up steps) and the profile of one
-    whole ``train_step``."""
-    from torch.profiler import ProfilerActivity, profile
+    """One training step, timed over ``--runs`` steps after 3 warm-up steps,
+    and the profile of one whole ``train_step``."""
     if args.train == "unfrozen":
         cfg = apply_overrides(cfg, ["train.frozen_prefixes="])
     batch, _, _ = make_scene_batch(cfg, args.batch, np.random.RandomState(0), "cuda")
     model = SIG3D(cfg, 706, dtype=torch.bfloat16, device="cuda")
     init_random_weights(model, 0)
     state = create_train_state(cfg, model, 1000, seed=0)
-    for _ in range(3):
+    for _ in range(2):
         train_step(cfg, state, batch)
-    times = {"forward": [], "backward": [], "optimizer": [], "step_total": []}
-    model.train()
-    for _ in range(args.runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = model(batch, generator=state.sample_generator, train=True,
-                    dropout_generator=state.dropout_generator)
-        loss, _ = get_loss(out, batch, cfg.loss, cfg.model.situation_loss_tag)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        state.optimizer.step()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, v in (("forward", t1 - t0), ("backward", t2 - t1), ("optimizer", t3 - t2)):
-            times[k].append(v * 1e3)
-    for _ in range(args.runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step(cfg, state, batch)
-        torch.cuda.synchronize()
-        times["step_total"].append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(cfg, state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = _device_rows(prof)
-    busy_ms = sum(r[0] for r in rows)
-    stages = {k: statistics.median(v) for k, v in times.items()}
-    n_train = sum(p.numel() for p in state.optimizer.params)
+    step = _profiled(lambda: train_step(cfg, state, batch), args.runs, 25,
+                     _trace_path(args, f"train_{args.train}_trace.json"))
     result = {
-        "card": card, "mode": f"train_{args.train}", "batch": args.batch,
-        "dtype": "bfloat16", "trainable_parameters": n_train,
-        "stages_ms": {k: round(v, 3) for k, v in stages.items()},
-        "samples_per_s": round(args.batch / stages["step_total"] * 1e3, 3),
-        "profiled_step_wall_ms": round(wall_ms, 3),
-        "device_busy_ms": round(busy_ms, 3),
-        "device_idle_share": (round(max(0.0, 1 - busy_ms / stages["step_total"]), 4)
-                              if busy_ms else "not measured"),
-        "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
-        "top_device_kernels": [{"ms": round(ms, 3), "calls": n, "name": k}
-                               for ms, n, k in rows[:25]],
-    }
-    if args.out:
-        import os
-        os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, f"train_{args.train}_trace.json"))
-        with open(os.path.join(args.out, f"profile_train_{args.train}.json"), "w") as fh:
-            json.dump(result, fh, indent=1)
-    print(json.dumps(result))
+        "card": card, "mode": f"train_{args.train}", "batch": args.batch, "dtype": "bfloat16",
+        "trainable_parameters": sum(p.numel() for p in state.optimizer.params),
+        "samples_per_s": round(args.batch / step["host_ms"] * 1e3, 3), "step": step}
+    _write(args, f"profile_train_{args.train}.json", result)
     return result
 
 
@@ -313,7 +308,6 @@ def profile_votenet(args, card) -> dict:
                                      for ms, n, k in trows[:20]],
     }
     if args.out:
-        import os
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out, "votenet_forward_trace.json"))
         with open(os.path.join(args.out, "profile_votenet.json"), "w") as fh:
@@ -350,19 +344,7 @@ def profile_blip2(args, card) -> dict:
     rng = np.random.RandomState(0)
     dbatch = tree_to_device(blip2_bench_batch(bcfg, args.batch, rng, labels=False), "cuda")
     tbatch = tree_to_device(blip2_bench_batch(bcfg, 4, rng), "cuda")
-    stages = {}
     with torch.inference_mode():
-        stages["scene_encoder"], _ = _timed(lambda: model.encode_scene(
-            dbatch["pc_feat"], dbatch["pc"], dbatch["pc_mask"]), args.runs)
-        emb, emask = model.prepare(dbatch)
-        stages["t5_encoder"], enc = _timed(lambda: model.t5.encode(emb, emask), args.runs)
-        cache = model.t5.init_cache(args.batch)
-        tok = torch.zeros(args.batch, 1, dtype=torch.long, device="cuda")
-
-        def step():
-            cache.index = 0
-            return model.t5.decode_step(enc, emask, tok, cache)
-        stages["decode_step"], _ = _timed(step, args.runs)
         decode = _profiled(lambda: predict_answers(model, dbatch, gen), args.runs)
         tokens = predict_answers(model, dbatch, gen).cpu().numpy()
     opt, _ = make_blip2_optimizer(cfg, model, 100)
@@ -385,24 +367,17 @@ def profile_blip2(args, card) -> dict:
         for k, a, b in (("forward_and_loss", t0, t1), ("backward", t1, t2),
                         ("optimizer", t2, t3)):
             parts[k].append((b - a) * 1e3)
-    stages.update({k: statistics.median(v) for k, v in parts.items()})
     train = _profiled(lambda: blip2_train_step(cfg, state, tbatch), args.runs)
-    for rec in (decode, train):
-        rec["idle_share"] = round(1.0 - rec["device_busy_ms"] / rec["host_ms"], 4)
+    train["stages_ms"] = {k: round(statistics.median(v), 3) for k, v in parts.items()}
     steps = max(int(np.argmax(r == 1)) + 1 if (r == 1).any() else gen for r in tokens)
     result = {
         "card": card, "mode": "blip2", "batch": args.batch, "train_batch": 4,
         "scene_tokens": bcfg.qformer.scene_token_capacity, "prompt": 64, "gen": gen,
-        "greedy_steps_run": steps, "stages_ms": {k: round(v, 3) for k, v in stages.items()},
+        "greedy_steps_run": steps,
         "tokens_per_s": round(args.batch * steps / decode["host_ms"] * 1e3, 2),
         "train_samples_per_s": round(4 / train["host_ms"] * 1e3, 3),
         "greedy_decode": decode, "train_step": train}
-    print(json.dumps(result))
-    if args.out:
-        import os
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_blip2.json"), "w") as fh:
-            json.dump(result, fh, indent=2)
+    _write(args, "profile_blip2.json", result)
     return result
 
 
@@ -457,19 +432,12 @@ def profile_stage1(args, card) -> dict:
         "input_mask": mask}, "cuda")
     with torch.inference_mode():
         decode = _profiled(lambda: opt_predict_answers(bo, dbatch, 10, eos_id=-1), args.runs)
-    for rec in (train, retrieval, decode):
-        rec["idle_share"] = round(1.0 - rec["device_busy_ms"] / rec["host_ms"], 4)
     result = {"card": card, "mode": "stage1", "batch": B, "text_len": L, "scene_tokens": N,
               "stage1_train_step": train,
               "stage1_samples_per_s": round(B / train["host_ms"] * 1e3, 3),
               "retrieval_32x32_k16": retrieval, "blip2_opt_greedy_decode_10": decode,
               "opt_tokens_per_s": round(B * 10 / decode["host_ms"] * 1e3, 2)}
-    print(json.dumps(result))
-    if args.out:
-        import os
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_stage1.json"), "w") as fh:
-            json.dump(result, fh, indent=2)
+    _write(args, "profile_stage1.json", result)
     return result
 
 
@@ -503,68 +471,25 @@ def main() -> int:
     if args.train:
         profile_train(args, cfg, card)
         return 0
-    sp = cfg.sparse
     batch, _, _ = make_scene_batch(cfg, args.batch, np.random.RandomState(0), "cuda")
-    plan_build = profile_plan(args, cfg, batch)
     model = SIG3D(cfg, 706, dtype=torch.bfloat16, device="cuda")
     init_random_weights(model, 0)
-    draws = make_sample_draws(args.batch, sp.capacities[-1], cfg.model.num_scene_tokens,
-                              torch.Generator().manual_seed(1), "cuda")
-    stages = {}
+    draws = make_sample_draws(args.batch, cfg.sparse.capacities[-1],
+                              cfg.model.num_scene_tokens, torch.Generator().manual_seed(1),
+                              "cuda")
     with torch.inference_mode():
-        for _ in range(2):
-            model(batch, sample_draws=draws)
-        stages["forward_total"], _ = _timed(lambda: model(batch, sample_draws=draws), args.runs)
-        stages["plan_build"], plan = _timed(lambda: build_unet_plan(
-            batch["voxel_coords"], batch["voxel_mask"], sp.capacities, sp.grid_extent,
-            device="cuda", dense_lookup=sp.dense_lookup,
-            dense_downsample=sp.dense_downsample), args.runs)
-        x = SparseVoxels(batch["voxel_coords"], batch["voxel_feats"].to(torch.bfloat16),
-                         batch["voxel_mask"], 1)
-        stages["sparse_encoder"], enc = _timed(
-            lambda: model.scene_encoder(x, plan, bottleneck_only=True), args.runs)
-        bott = enc["feat_bottleneck"]
-        stages["token_pool"], toks = _timed(lambda: situated_token_pool(
-            bott.coords, bott.feats, bott.mask, bott.stride, cfg.model.num_scene_tokens,
-            cfg.data.voxel_size, *draws), args.runs)
-        stages["language"], _ = _timed(lambda: model.lang_net(
-            batch["s_ids"], batch["s_mask"], batch["q_ids"], batch["q_mask"]), args.runs)
-        fast = {k: v for k, v in batch.items() if not k.startswith("voxel_")}
-        fast["scene_tokens"], fast["scene_token_positions"] = toks
-        stages["language_fusion_heads"], _ = _timed(lambda: model(fast), args.runs)
-
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            scores = model(batch, sample_draws=draws)["answer_scores"]
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = _device_rows(prof)
-    busy_ms = sum(r[0] for r in rows)
+        model(batch, sample_draws=draws)
+        forward = _profiled(lambda: model(batch, sample_draws=draws), args.runs, 25,
+                            _trace_path(args, "forward_trace.json"))
+        scores = model(batch, sample_draws=draws)["answer_scores"]
     result = {
-        "card": card, "batch": args.batch, "dtype": "bfloat16",
-        "stages_ms": {k: round(v, 3) for k, v in stages.items()},
-        "profiled_forward_wall_ms": round(wall_ms, 3),
-        "device_busy_ms": round(busy_ms, 3),
-        # busy time is from the profiled forward; the profiler slows the host,
-        # so the idle share is taken against the unprofiled forward's time
-        "device_idle_share": (round(max(0.0, 1 - busy_ms / stages["forward_total"]), 4)
-                              if busy_ms else "not measured"),
-        "top_device_kernels": [{"ms": round(ms, 3), "calls": n, "name": k}
-                               for ms, n, k in rows[:25]],
-        "plan_build": plan_build,
+        "card": card, "batch": args.batch, "dtype": "bfloat16", "forward": forward,
         # seeded weights, batch and draws: equal digests on two trees mean
         # bit-equal answers
         "answer_scores_sha256": hashlib.sha256(
             scores.float().cpu().numpy().tobytes()).hexdigest()[:16],
     }
-    if args.out:
-        import os
-        os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, "forward_trace.json"))
-        with open(os.path.join(args.out, "profile_forward.json"), "w") as fh:
-            json.dump(result, fh, indent=1)
-    print(json.dumps(result))
+    _write(args, "profile_forward.json", result)
     return 0
 
 

@@ -46,6 +46,7 @@ from situation3d_tpu_torch.train.logging import MetricLogger
 from situation3d_tpu_torch.train.optim import (Optimizer, blip2_trainable_mask,
                                                make_optimizer)
 from situation3d_tpu_torch.train.trainer import grads_finite
+from situation3d_tpu_torch.utils.trace import span
 
 
 def make_blip2_optimizer(cfg: Config, model: Blip2T5, steps_per_epoch: int):
@@ -183,9 +184,13 @@ class Blip2Trainer:
         last_val = -1
         meter = MetricLogger()
         fetch: List[float] = []
-        t_fetch = t0 = time.perf_counter()
-        for batch in train_iter:
-            if step >= limit:
+        t0 = time.perf_counter()
+        batches = iter(train_iter)
+        while True:
+            t_fetch = time.perf_counter()
+            with span("train.fetch"):
+                batch = next(batches, None)
+            if batch is None or step >= limit:
                 break
             fetch.append(time.perf_counter() - t_fetch)
             metrics = blip2_train_step(self.cfg, self.state, shard_batch(batch, self.mesh),
@@ -206,7 +211,6 @@ class Blip2Trainer:
                 self._validate(step, val_iter_fn, golds)
                 last_val = step
                 t0 = time.perf_counter()
-            t_fetch = time.perf_counter()
         if self.state.step > 0 and self.ckpt.latest_step() != step:
             self.save()
         if val_iter_fn is not None:

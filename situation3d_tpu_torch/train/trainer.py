@@ -41,6 +41,7 @@ from situation3d_tpu_torch.train.losses import get_loss
 from situation3d_tpu_torch.train.metrics import answer_metrics, situation_metrics
 from situation3d_tpu_torch.train.optim import (Optimizer, make_optimizer,
                                                sig3d_trainable_mask)
+from situation3d_tpu_torch.utils.trace import span
 
 
 def make_sig3d_optimizer(cfg: Config, model: SIG3D, steps_per_epoch: int):
@@ -104,29 +105,35 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, Any],
     (``shard_batch``)."""
     model = state.model
     model.train()
-    b = model._to_device(batch)
-    out = model(b, generator=sharded(state.sample_generator, mesh), train=True,
-                dropout_generator=sharded(state.dropout_generator, mesh))
-    loss, terms = get_loss(out, b, cfg.loss, cfg.model.situation_loss_tag)
-    state.optimizer.discard()
-    loss.backward()
-    collectives.pmean_grads(state.optimizer.params)
-    metrics = {k: v.detach() for k, v in terms.items()}
-    if cfg.train.nan_guard != "off":
-        finite = grads_finite(loss.detach(), state.optimizer.params, cfg.train.nan_guard)
-        finite = collectives.pmin(finite.to(torch.float32)).bool()    # one verdict
-        metrics["grads_finite"] = finite.to(torch.float32)
-        if bool(finite):
-            state.optimizer.step()
+    with span("train.step", request=state.step + 1):
+        b = model._to_device(batch)
+        out = model(b, generator=sharded(state.sample_generator, mesh), train=True,
+                    dropout_generator=sharded(state.dropout_generator, mesh))
+        with span("train.loss"):
+            loss, terms = get_loss(out, b, cfg.loss, cfg.model.situation_loss_tag)
+        state.optimizer.discard()
+        with span("train.backward"):
+            loss.backward()
+        collectives.pmean_grads(state.optimizer.params)
+        metrics = {k: v.detach() for k, v in terms.items()}
+        if cfg.train.nan_guard != "off":
+            with span("train.nan_guard"):
+                finite = grads_finite(loss.detach(), state.optimizer.params, cfg.train.nan_guard)
+                finite = collectives.pmin(finite.to(torch.float32)).bool()    # one verdict
+                metrics["grads_finite"] = finite.to(torch.float32)
+                finite = bool(finite)
         else:
-            state.optimizer.discard()
-    else:
-        state.optimizer.step()
-    state.step += 1
-    with torch.no_grad():
-        metrics.update(answer_metrics(out["answer_scores"].detach(),
-                                      b["answer_cat_scores"], b.get("question_type")))
-    metrics.update({k: v for k, v in out.items() if k.startswith("overflow/")})
+            finite = True
+        with span("train.optimizer"):
+            if finite:
+                state.optimizer.step()
+            else:
+                state.optimizer.discard()
+        state.step += 1
+        with span("train.metrics"), torch.no_grad():
+            metrics.update(answer_metrics(out["answer_scores"].detach(),
+                                          b["answer_cat_scores"], b.get("question_type")))
+        metrics.update({k: v for k, v in out.items() if k.startswith("overflow/")})
     return metrics
 
 
@@ -229,8 +236,13 @@ class Trainer:
             max_steps: Optional[int] = None) -> TrainState:
         cfg = self.cfg.train
         step = self.state.step
-        t_fetch = time.perf_counter()
-        for batch in train_iter:
+        batches = iter(train_iter)
+        while True:
+            t_fetch = time.perf_counter()
+            with span("train.fetch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             self._timings["fetch"].append(time.perf_counter() - t_fetch)
             t0 = time.perf_counter()
             metrics = self.train_step(batch)
@@ -261,7 +273,6 @@ class Trainer:
                             w.writerows(self.last_predictions)
             if max_steps is not None and step >= max_steps:
                 break
-            t_fetch = time.perf_counter()
         self._save(step)
         return self.state
 
