@@ -128,6 +128,7 @@ from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
                                                 make_sample_draws)
 from situation3d_tpu_torch.models.vit import init_vision_encoder
 from situation3d_tpu_torch.models.votenet import VoteNet
+from situation3d_tpu_torch.models import t5 as t5_mod
 from situation3d_tpu_torch.ops import native, pointnet2
 from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
                                             gather_rows, map_bits, map_lookup)
@@ -2507,6 +2508,7 @@ B2_DECODE_BATCH = 8    # bench.py blip2_decode: B=8, 5,120 scene tokens, prompt 
 B2_TRAIN_BATCH = 4     # bench.py blip2_train: B=4, prompt 64, answers 8
 B2_PROMPT, B2_ANSWER, B2_GEN, B2_BEAMS = 64, 8, 10, 5
 B2_STEPS = 3
+B2_CELL_PROMPT, B2_CHECK_BATCHES = 400, 4   # the blip2_flant5xl.answer cell's prompt positions
 B2_POINTS = 6000       # points a scene in the files: above the 5,120 capacity
 B2_WIDTH: list = []    # default widths (flan-t5-xl, 12-layer Q-Former); a rehearsal shrinks them
 B2_SMALL = ["blip2.t5.vocab_size=128", "blip2.t5.d_model=64", "blip2.t5.d_kv=16",
@@ -2532,6 +2534,58 @@ def _timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def blip2_captured_decode(model, bcfg) -> dict:
+    """The captured greedy decode against the eager steps on fresh buffers,
+    at the ``blip2_flant5xl.answer`` cell's size (B=8, 32 + 400 encoder
+    positions, 10 tokens) over ``B2_CHECK_BATCHES`` batches: the tokens
+    equal, the widest logit gap of the steps run, ``GEN`` captures at the
+    first batch and one replay a step run, and one eager and one replayed
+    step timed with CUDA events."""
+    t5, t5c = model.t5, bcfg.t5
+    start, eos, pad = t5c.decoder_start_token_id, t5c.eos_token_id, t5c.pad_token_id
+    rows, gap, scale = [], 0.0, 0.0
+    with torch.no_grad():
+        for k in range(B2_CHECK_BATCHES):
+            batch = tree_to_device(blip2_bench_batch(
+                bcfg, B2_DECODE_BATCH, np.random.RandomState(SEED + 80 + k), B2_CELL_PROMPT,
+                labels=False), DEV)
+            emb, emask = model.prepare(batch)
+            c0, r0 = t5_mod.decode_graph_captures, t5_mod.decode_graph_replays
+            tokens = t5_mod.greedy_decode(t5, emb, emask, B2_GEN, start, eos, pad)
+            captures = t5_mod.decode_graph_captures - c0
+            replays = t5_mod.decode_graph_replays - r0
+            enc = t5.encode(emb, emask)
+            cap = t5.decode_graphs.get(t5, enc, emask, B2_GEN, start, eos, pad)
+            b = t5_mod.GreedyBuffers(t5, enc, emask, B2_GEN)
+            b.load(enc, emask, start, pad)
+            eager = []
+            for i in range(B2_GEN):
+                eager.append(t5_mod.greedy_step(t5, b, i, eos, pad, i + 1 < B2_GEN).float())
+                if i + 1 < B2_GEN and bool(b.finished):
+                    break
+            steps = len(eager)
+            for i in range(steps):
+                gap = max(gap, float((cap.logits[i].float() - eager[i]).abs().max()))
+                scale = max(scale, float(eager[i].abs().max()))
+            same = torch.equal(tokens, b.out)
+            rows.append({"captures": captures, "replays": replays, "steps": steps,
+                         "tokens_equal": same})
+            if not same or replays != steps or captures != (B2_GEN if k == 0 else 0):
+                fail(f"blip2 captured decode, batch {k}: {rows[-1]}; captured "
+                     f"{tokens.tolist()}, eager {b.out.tolist()}")
+        # one step each way, the buffers of the last batch
+        eager_ms = time_cuda(lambda: t5_mod.greedy_step(t5, b, 0, eos, pad, True), iters=10)
+        replay_ms = time_cuda(lambda: cap.graphs[0].replay(), iters=10)
+    rec = {"batch_size": B2_DECODE_BATCH, "encoder_positions": int(emask.shape[1]),
+           "max_len": B2_GEN, "batches": rows, "widest_logit_gap": gap,
+           "largest_logit": round(scale, 3), "eager_step_ms": round(eager_ms, 3),
+           "replayed_step_ms": round(replay_ms, 3)}
+    emit("blip2_captured_decode", **rec)
+    del cap, b, eager, enc, emb
+    t5.decode_graphs.keys.clear()
+    return rec
 
 
 def blip2_train_and_decode(cfg) -> dict:
@@ -2582,6 +2636,7 @@ def blip2_train_and_decode(cfg) -> dict:
          peak_memory_gb=round(train_peak, 2))
 
     model.eval()
+    blip2_captured_decode(model, bcfg)
     dbatch = tree_to_device(blip2_bench_batch(bcfg, B2_DECODE_BATCH,
                                               np.random.RandomState(SEED + 71), B2_PROMPT,
                                               labels=False), DEV)

@@ -16,9 +16,16 @@ slots with the later ones masked, and takes row ``index`` of the bias over
 ``sample_decode`` are Python loops over ``decode_step``; each reads one flag
 from the device a step to stop when every row is done. ``sample_decode``
 takes its Gumbel noise as an input (or draws it from a generator).
+
+On a CUDA device with grad off, ``greedy_decode`` captures each of its steps
+once per shape as a CUDA graph over static buffers (:class:`GreedyBuffers`)
+and replays it; the flag is still read between steps. The eager loop runs
+the same step function on the same buffers, so both emit the same tokens.
 """
 from __future__ import annotations
 
+import itertools
+from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 import torch
@@ -35,6 +42,11 @@ from situation3d_tpu_torch.parallel.mesh import draw
 from situation3d_tpu_torch.utils.trace import span, spanned
 
 NEG_INF = -1e9
+GRAPH_KEYS = 4      # the greedy decode shapes a model keeps captured, the most recent
+GRAPH_WARMUP = 3    # eager steps on the capture stream before the first capture
+
+decode_graph_captures = 0   # +1 per greedy step graph captured, nowhere else
+decode_graph_replays = 0    # +1 per greedy step graph replayed, nowhere else
 
 
 class DecodeCache:
@@ -66,8 +78,9 @@ class T5LayerNorm(nn.Module):
 
 
 def _where_neg(keep: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
-    return torch.where(keep, scores, torch.tensor(NEG_INF, dtype=scores.dtype,
-                                                  device=scores.device))
+    # the fill made on the device: a host tensor's copy would sync the stream
+    # (and cannot be captured)
+    return torch.where(keep, scores, scores.new_full((), NEG_INF))
 
 
 class T5Attention(nn.Module):
@@ -252,6 +265,7 @@ class T5ForConditionalGeneration(nn.Module):
         self.encoder = T5Encoder(cfg, dtype)
         self.decoder = T5Decoder(cfg, dtype)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dtype, bias=False)
+        self.decode_graphs = DecodeGraphs()
 
     def embed(self, ids):
         return self.shared(ids)
@@ -453,29 +467,144 @@ def beam_search_decode(model: T5ForConditionalGeneration, inputs_embeds, enc_mas
     return fin_seqs[torch.arange(B, device=dev), best]
 
 
+class GreedyBuffers:
+    """The static state of one greedy decode shape: the encoder's output and
+    mask, every layer's cache slots (views of one flat buffer), the emitted
+    tokens ``out``, the next input ``tok``, the rows ``done`` and whether all
+    are (``finished``)."""
+
+    def __init__(self, model: T5ForConditionalGeneration, enc: torch.Tensor,
+                 enc_mask: torch.Tensor, max_len: int):
+        cfg, B, dev = model.cfg, enc.shape[0], enc.device
+        self.enc, self.enc_mask = torch.empty_like(enc), torch.empty_like(enc_mask)
+        self.slots = torch.empty((cfg.num_decoder_layers, 2, B, cfg.num_heads,
+                                  cfg.max_answer_len, cfg.d_kv), dtype=model.dtype, device=dev)
+        self.cache = DecodeCache([{"key": kv[0], "value": kv[1]} for kv in self.slots.unbind(0)])
+        self.out = torch.empty((B, max_len), dtype=torch.long, device=dev)
+        self.tok = torch.empty((B, 1), dtype=torch.long, device=dev)
+        self.done = torch.empty(B, dtype=torch.bool, device=dev)
+        self.finished = torch.empty((), dtype=torch.bool, device=dev)
+
+    def load(self, enc, enc_mask, start_id: int, pad_id: int) -> None:
+        """A new batch: its inputs copied in, the slots zeroed, nothing emitted."""
+        self.enc.copy_(enc)
+        self.enc_mask.copy_(enc_mask)
+        self.slots.zero_()
+        self.out.fill_(pad_id)
+        self.tok.fill_(start_id)
+        self.done.zero_()
+
+
+def greedy_step(model: T5ForConditionalGeneration, b: GreedyBuffers, i: int,
+                eos_id: int, pad_id: int, check: bool) -> torch.Tensor:
+    """Greedy step ``i`` on ``b``, in place and without a host read: the next
+    token (pad once its row is done) into ``out[:, i]`` and ``tok``, the rows
+    done and, where ``check``, whether all are. Returns the step's logits."""
+    b.cache.index = i
+    logits = model.decode_step(b.enc, b.enc_mask, b.tok, b.cache)
+    nxt = logits[:, -1].argmax(-1).masked_fill(b.done, pad_id)
+    b.out[:, i] = nxt
+    b.done |= nxt == eos_id
+    b.tok.copy_(nxt[:, None])
+    if check:
+        b.finished.copy_(b.done.all())
+    return logits
+
+
+class CapturedDecode:
+    """One key's buffers and its step graphs, one a step index, in one
+    memory pool; ``logits[i]``: step ``i``'s output in that pool."""
+
+    def __init__(self, model: T5ForConditionalGeneration, enc, enc_mask, max_len: int,
+                 start_id: int, eos_id: int, pad_id: int):
+        global decode_graph_captures
+        self.buffers = b = GreedyBuffers(model, enc, enc_mask, max_len)
+        b.load(enc, enc_mask, start_id, pad_id)
+        here = torch.cuda.current_stream(enc.device)
+        side = torch.cuda.Stream(enc.device)
+        side.wait_stream(here)
+        self.graphs, self.logits = [], []
+        with torch.cuda.device(enc.device), torch.cuda.stream(side):
+            pool = torch.cuda.graph_pool_handle()
+            for i in range(min(GRAPH_WARMUP, max_len)):   # cuBLAS and the allocator, off the graph
+                greedy_step(model, b, i, eos_id, pad_id, True)
+            for i in range(max_len):
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, pool=pool, stream=side):
+                    self.logits.append(greedy_step(model, b, i, eos_id, pad_id, i + 1 < max_len))
+                self.graphs.append(g)
+                decode_graph_captures += 1
+        here.wait_stream(side)
+
+    def replay(self, i: int) -> None:
+        global decode_graph_replays
+        self.graphs[i].replay()
+        decode_graph_replays += 1
+
+
+def decode_storage(model: T5ForConditionalGeneration) -> tuple:
+    """Where the decode step's parameters and buffers live: the captured
+    graphs read them through these addresses."""
+    return tuple(t.data_ptr() for m in (model.decoder, model.shared, model.lm_head)
+                 for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+class DecodeGraphs:
+    """A model's captured greedy decodes, the ``GRAPH_KEYS`` most recent keys
+    ``(B, L_enc, max_len, dtype, mask dtype, eos, pad, device, inference
+    mode)``; all dropped when the decode's parameter storage moved. A copy
+    of the model starts with none."""
+
+    def __init__(self):
+        self.storage, self.keys = None, OrderedDict()
+
+    def __deepcopy__(self, memo):
+        return DecodeGraphs()
+
+    def get(self, model: T5ForConditionalGeneration, enc, enc_mask, max_len: int,
+            start_id: int, eos_id: int, pad_id: int) -> Optional[CapturedDecode]:
+        """This call's captured decode, captured at its key's first call; None
+        where the steps run eagerly: CPU tensors, grad on, a stream capturing."""
+        if (enc.device.type != "cuda" or torch.is_grad_enabled()
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        storage = decode_storage(model)
+        if storage != self.storage:
+            self.keys.clear()
+            self.storage = storage
+        key = (*enc.shape[:2], max_len, enc.dtype, enc_mask.dtype, eos_id, pad_id,
+               enc.device, torch.is_inference_mode_enabled())
+        if key in self.keys:
+            self.keys.move_to_end(key)
+            return self.keys[key]
+        while len(self.keys) >= GRAPH_KEYS:
+            self.keys.popitem(last=False)
+        self.keys[key] = CapturedDecode(model, enc, enc_mask, max_len, start_id, eos_id, pad_id)
+        return self.keys[key]
+
+
 @torch.no_grad()
 def greedy_decode(model: T5ForConditionalGeneration, inputs_embeds, enc_mask,
                   max_len: int, decoder_start_id: int, eos_id: int, pad_id: int
                   ) -> torch.Tensor:
     """Greedy generation (beam 1). Returns int64 [B, max_len] (pad after
-    EOS); stops once every row has emitted EOS."""
-    B = inputs_embeds.shape[0]
-    dev = inputs_embeds.device
+    EOS); stops once every row has emitted EOS. Each step replays its
+    captured graph where :meth:`DecodeGraphs.get` gives one, else runs
+    :func:`greedy_step` eagerly."""
     enc = model.encode(inputs_embeds, enc_mask)
-    cache = model.init_cache(B, dev)
-    out = torch.full((B, max_len), pad_id, dtype=torch.long, device=dev)
-    tok = torch.full((B, 1), decoder_start_id, dtype=torch.long, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    captured = model.decode_graphs.get(model, enc, enc_mask, max_len, decoder_start_id,
+                                       eos_id, pad_id)
+    b = captured.buffers if captured else GreedyBuffers(model, enc, enc_mask, max_len)
+    b.load(enc, enc_mask, decoder_start_id, pad_id)
     # a step's span holds its token and the check that ends the loop after it
-    finished = max_len > 0 and bool(done.all())
     for i in range(max_len):
-        if finished:
-            break
+        check = i + 1 < max_len
         with span("t5.decode_step"):
-            nxt = model.decode_step(enc, enc_mask, tok, cache)[:, -1].argmax(-1)
-            nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-            out[:, i] = nxt
-            done = done | (nxt == eos_id)
-            tok = nxt[:, None]
-            finished = i + 1 < max_len and bool(done.all())
-    return out
+            if captured:
+                captured.replay(i)
+            else:
+                greedy_step(model, b, i, eos_id, pad_id, check)
+            if check and bool(b.finished):
+                break
+    # the captured buffers serve the key's next call
+    return b.out.clone() if captured else b.out

@@ -8,6 +8,8 @@ Tolerances: logits within 1e-5 of the largest logit (the same float32 sums
 in another order); decoded tokens equal, token for token: greedy, beam
 search (3 beams) and nucleus sampling with JAX's Gumbel draws injected.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,7 +55,7 @@ def ref():
         assert load_jax_variables(m, to_numpy_tree(variables["params"]), {}) == []
         port[name] = m
     return {"jm": jm, "v": {"plain": v, "eos": v_eos}, "port": port, "emb": emb,
-            "emask": emask, "dec": dec, "dmask": dmask, "cfg": c}
+            "emask": emask, "dec": dec, "dmask": dmask, "cfg": c, "greedy": {}}
 
 
 def _t(x, long=False):
@@ -107,19 +109,110 @@ def test_decode_step_through_the_cache_matches_the_full_decode(ref):
     assert np.abs(got - full).max() <= LOGIT_RTOL * np.abs(full).max()
 
 
-@pytest.mark.parametrize("weights,max_len", [("plain", MAX_LEN), ("eos", MAX_LEN),
-                                             ("plain", MAX_LEN + 3)])
-def test_greedy_tokens_equal_reference(ref, weights, max_len):
+def _plain_greedy(m, emb, emask, max_len):
+    """The plain greedy loop: a fresh cache, ``torch.where`` with a tensor
+    fill, new ``done`` and ``tok`` tensors and the flag read a step."""
+    B = emb.shape[0]
+    enc = m.encode(emb, emask)
+    cache = m.init_cache(B)
+    out = torch.full((B, max_len), PAD, dtype=torch.long)
+    tok = torch.full((B, 1), START, dtype=torch.long)
+    done = torch.zeros(B, dtype=torch.bool)
+    for i in range(max_len):
+        nxt = m.decode_step(enc, emask, tok, cache)[:, -1].argmax(-1)
+        nxt = torch.where(done, torch.full_like(nxt, PAD), nxt)
+        out[:, i] = nxt
+        done = done | (nxt == EOS)
+        tok = nxt[:, None]
+        if i + 1 < max_len and bool(done.all()):
+            break
+    return out
+
+
+def _steps_on_buffers(m, emb, emask, max_len):
+    """``greedy_step`` on one set of static buffers for every step, past the
+    early exit too: the body a captured decode replays, run eagerly."""
+    enc = m.encode(emb, emask)
+    b = tt5.GreedyBuffers(m, enc, emask, max_len)
+    b.load(enc, emask, START, PAD)
+    for i in range(max_len):
+        tt5.greedy_step(m, b, i, EOS, PAD, i + 1 < max_len)
+    return b.out
+
+
+@pytest.mark.parametrize("weights,max_len,how", [
+    pytest.param(w, n, how, id=f"{w}-{n}" + ("" if how == "greedy_decode" else f"-{how}"))
+    for how in ("greedy_decode", "steps_on_buffers")
+    for w, n in (("plain", MAX_LEN), ("eos", MAX_LEN), ("plain", MAX_LEN + 3))])
+def test_greedy_tokens_equal_reference(ref, weights, max_len, how):
     """Past the 8 cache slots (``max_len`` 11) the reference clamps the write
-    and the bias row to the last slot; the port does the same."""
+    and the bias row to the last slot; the port does the same. The step
+    function on its static buffers emits the same tokens as the plain loop,
+    and on the CPU nothing is captured or replayed."""
     jm, v = ref["jm"], ref["v"][weights]
-    want = _jit(lambda v: jt5.greedy_decode(jm, v, ref["emb"], ref["emask"], max_len,
-                                            START, EOS, PAD), v)
-    got = t2n(tt5.greedy_decode(ref["port"][weights], _t(ref["emb"]), _t(ref["emask"]),
-                                max_len, START, EOS, PAD))
-    np.testing.assert_array_equal(got, want)
+    if (weights, max_len) not in ref["greedy"]:     # one reference decode for both ways
+        ref["greedy"][weights, max_len] = _jit(lambda v: jt5.greedy_decode(
+            jm, v, ref["emb"], ref["emask"], max_len, START, EOS, PAD), v)
+    want = ref["greedy"][weights, max_len]
+    m, emb, emask = ref["port"][weights], _t(ref["emb"]), _t(ref["emask"])
+    counts = (tt5.decode_graph_captures, tt5.decode_graph_replays)
+    with torch.no_grad():
+        if how == "greedy_decode":
+            got = tt5.greedy_decode(m, emb, emask, max_len, START, EOS, PAD)
+        else:
+            got = _steps_on_buffers(m, emb, emask, max_len)
+        plain = _plain_greedy(m, emb, emask, max_len)
+    np.testing.assert_array_equal(t2n(got), want)
+    np.testing.assert_array_equal(t2n(plain), want)
+    assert (tt5.decode_graph_captures, tt5.decode_graph_replays) == counts == (0, 0)
+    assert not m.decode_graphs.keys
     if weights == "eos":   # some row ended early, padded after its EOS
         assert (want == EOS).any() and (want[:, -1] == PAD).any()
+
+
+def test_where_neg_equals_the_tensor_fill():
+    """``_where_neg`` makes its fill on the scores' device: bit for bit the
+    ``torch.where`` with a host ``NEG_INF`` tensor, on the decode's slot
+    mask, the causal mask and a key mask."""
+    g = torch.Generator().manual_seed(5)
+    scores = torch.randn(B, 4, 1, MAX_LEN, generator=g) * 30
+    keeps = [(torch.arange(MAX_LEN) <= 3)[None, None, None],
+             torch.ones(MAX_LEN, MAX_LEN, dtype=torch.bool).tril()[None, None, :1],
+             torch.rand(B, MAX_LEN, generator=g)[:, None, None, :] < 0.5]
+    for keep in keeps:
+        old = torch.where(keep, scores, torch.tensor(tt5.NEG_INF, dtype=scores.dtype))
+        new = tt5._where_neg(keep, scores)
+        assert new.dtype == old.dtype and torch.equal(new.view(torch.int32),
+                                                      old.view(torch.int32))
+        assert (new == tt5.NEG_INF).any() and (new != tt5.NEG_INF).any()
+
+
+def test_decode_storage_moves_with_a_swapped_storage_only(ref):
+    """The captured steps read the weights through their addresses: the
+    storage fingerprint stays under an in-place update (an optimizer step)
+    and changes where a parameter's storage is swapped (``.data``, an
+    assigning ``load_state_dict``); a copy of the model keeps no graph."""
+    m = copy.deepcopy(ref["port"]["plain"])
+    assert isinstance(m.decode_graphs, tt5.DecodeGraphs) and not m.decode_graphs.keys
+    base = tt5.decode_storage(m)
+    assert len(base) == len(list(m.decoder.parameters())) + 2 and len(set(base)) == len(base)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.mul_(1.5).add_(0.25)
+    assert tt5.decode_storage(m) == base
+    w = m.decoder.block1.ff.wo.weight
+    w.data = w.data.clone()
+    swapped = tt5.decode_storage(m)
+    assert swapped != base
+    assert sum(a != b for a, b in zip(swapped, base)) == 1
+    m.load_state_dict({k: v.clone() for k, v in m.state_dict().items()}, assign=True)
+    loaded = tt5.decode_storage(m)
+    assert all(a != b for a, b in zip(loaded, swapped))
+    e = m.encoder.block0.ff.wo.weight     # the encoder is not read by a step
+    e.data = e.data.clone()
+    assert tt5.decode_storage(m) == loaded
+    assert m.decode_graphs.get(m, torch.zeros(B, LE, 64), _t(ref["emask"]), MAX_LEN,
+                               START, EOS, PAD) is None
 
 
 @pytest.mark.parametrize("weights,min_length,length_penalty", [
