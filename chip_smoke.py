@@ -78,7 +78,11 @@ set to 0 just before and read just after. Each record also carries the
 launches of the last slice's paths, counted the same way: one SIG3D forward
 on the sort plan (``sortplan``), the training-form whole-UNet forward and its
 backward (``openscene``), one multiview back-projection with its backward
-(``multiview``).
+(``multiview``). ``moe_experts`` (the expert layer: plan, two grouped
+launches, ordered sums) is held to its plain version at LFM2-24B-A2B's
+widths at a decode step's 8 tokens and a prefill's 616; its launches are
+read around one ``lfm2_predict_answers`` batch of a 4-layer cut of that
+model, replayed and eager.
 """
 from __future__ import annotations
 
@@ -96,7 +100,7 @@ from situation3d_tpu_torch.cli import eval as cli_eval
 from situation3d_tpu_torch.cli import infer as cli_infer
 from situation3d_tpu_torch.cli import score as cli_score
 from situation3d_tpu_torch.cli import train as cli_train
-from situation3d_tpu_torch.config import Config, apply_overrides
+from situation3d_tpu_torch.config import Config, QFormerConfig, apply_overrides
 from situation3d_tpu_torch.ckpt_compat.minkunet import (convert_minkunet,
                                                        random_reference_state_dict)
 from situation3d_tpu_torch.data.openscene_loader import FusedFeatureLoader
@@ -120,6 +124,7 @@ from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
 from situation3d_tpu_torch.eval.retrieval import compute_sim_matrix
 from situation3d_tpu_torch.models.blip2_opt import Blip2OPT, opt_predict_answers
 from situation3d_tpu_torch.models.blip2_qformer import Blip2Qformer
+from situation3d_tpu_torch.models.blip2_lfm2 import Blip2LFM2, lfm2_predict_answers
 from situation3d_tpu_torch.models.blip2_t5 import Blip2T5, generate, predict_answers
 from situation3d_tpu_torch.models.enet import ENetForMultiview
 from situation3d_tpu_torch.models.med import MedBertLMHeadModel, MedBertModel, MedConfig
@@ -128,10 +133,12 @@ from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
                                                 make_sample_draws)
 from situation3d_tpu_torch.models.vit import init_vision_encoder
 from situation3d_tpu_torch.models.votenet import VoteNet
+from situation3d_tpu_torch.models import blip2_lfm2 as lfm2_mod
 from situation3d_tpu_torch.models import t5 as t5_mod
+from situation3d_tpu_torch.models.lfm2 import LFM2Config
 from situation3d_tpu_torch.ops import native, pointnet2
-from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv,
-                                            gather_rows, map_bits, map_lookup)
+from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv, gather_rows,
+                                            map_bits, map_lookup, moe_experts)
 from situation3d_tpu_torch.ops.projection import (CameraIntrinsics, multiview_backproject,
                                                   project_points)
 from situation3d_tpu_torch.ops.voxelize import voxelize_np, voxelize_torch
@@ -164,6 +171,7 @@ DEV = "cuda"   # every phase runs here; there is no CPU mode
 SUM_ATOL = 1e-5       # scatter-add: the same f32 sums in another order
 GRAD_RTOL = 1e-4      # conv dx/dW vs plain autograd, relative to the largest value
 GRAD_RTOL_BF16 = 2e-2  # with bf16 inputs: dx, and the plain version's dW, round to bf16
+MOE_RTOL = 1e-3       # expert layer, of the largest output: h rounds to bf16 after sums in another order
 # kernel name -> (module, name of its launch counter)
 KERNEL_COUNTERS = {"fused_sparse_conv": (fused_conv, "launches"),
                    "k3_map_lookup": (map_lookup, "launches"),
@@ -172,7 +180,8 @@ KERNEL_COUNTERS = {"fused_sparse_conv": (fused_conv, "launches"),
                    "gather_rows": (gather_rows, "gather_launches"),
                    "scatter_add_rows": (gather_rows, "scatter_launches"),
                    "segment_plan": (gather_rows, "plan_launches"),
-                   "fps": (fps, "launches")}
+                   "fps": (fps, "launches"),
+                   "moe_experts": (moe_experts, "launches")}
 DET_POINTS = 40000    # points a scene on the detection path
 DET_NPOINTS = (2048, 1024, 512, 256)
 DET_PROPOSALS = 128
@@ -1050,11 +1059,138 @@ def phase_kernels(cfg, batch) -> dict:
     del plan, L
     check_fps(records)
     check_detection_gathers(records)
+    records["moe_experts"] = check_moe_experts()
     emit("kernels", conv_atol=CONV_ATOL, sum_atol=SUM_ATOL, grad_rtol=GRAD_RTOL,
          grad_rtol_bf16=GRAD_RTOL_BF16, timing="CUDA events, L2 evicted before each call",
          kernels={k: {kk: (round(vv, 5) if isinstance(vv, float) else vv)
                       for kk, vv in v.items()} for k, v in records.items()})
     return records
+
+
+LFM2_WIDTHS = dict(E=64, M=1536, D=2048, K=4)     # LFM2-24B-A2B's expert layer
+
+
+def _grouped_mm(x, idx, w13t, w2t, E: int, M: int, K: int):
+    """The library's two grouped products on rows grouped by expert (the
+    routing weights and the sums of each token's rows left out)."""
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    ends = torch.cumsum(torch.bincount(idx.reshape(-1), minlength=E), 0).to(torch.int32)
+    gu = torch._grouped_mm(x[order // K], w13t, offs=ends)
+    h = (torch.nn.functional.silu(gu[:, :M].float()) * gu[:, M:].float()).bfloat16()
+    return torch._grouped_mm(h, w2t, offs=ends)
+
+
+def measure_moe(tokens: int) -> dict:
+    """``moe_experts`` at LFM2-24B-A2B's widths against its plain version
+    (within ``MOE_RTOL`` of the largest output; the counters from the plan
+    equal the plain version's count), on choices drawn uniformly, a few
+    dropped (``benchmarks/tests/test_bench_lfm2.py`` holds skewed ones to
+    the plain version too); times of the whole call (plan,
+    both grouped launches, ordered sums), the plain version and the
+    library's grouped products, and the bound: each chosen expert's weights
+    read once, each token's row read and its float32 sum written once, or
+    6 D M operations a routed row at the bf16 peak."""
+    E, M, D, K = (LFM2_WIDTHS[k] for k in "EMDK")
+    g = torch.Generator(device=DEV).manual_seed(tokens)
+    x = torch.randn(tokens, D, generator=g, device=DEV).bfloat16()
+    w1 = (torch.randn(E, M, D, generator=g, device=DEV) / D ** 0.5).bfloat16()
+    w3 = (torch.randn(E, M, D, generator=g, device=DEV) / D ** 0.5).bfloat16()
+    w2 = (torch.randn(E, D, M, generator=g, device=DEV) / M ** 0.5).bfloat16()
+    idx = torch.topk(torch.rand(tokens, E, generator=g, device=DEV), K, -1).indices.int()
+    idx[::7, 1] = -1
+    w = torch.rand(tokens, K, generator=g, device=DEV)
+    c_kernel = torch.zeros(2, dtype=torch.int64, device=DEV)
+    c_plain = torch.zeros(2, dtype=torch.int64, device=DEV)
+    got = moe_experts.moe_experts(x, idx, w, w1, w3, w2, c_kernel)
+    want = moe_experts.moe_experts_plain(x, idx, w, w1, w3, w2, c_plain)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= MOE_RTOL:
+        fail(f"moe_experts {tokens} tokens: max err {err} > {MOE_RTOL} of the largest")
+    if c_kernel.tolist() != c_plain.tolist():
+        fail(f"moe_experts {tokens} tokens: counters {c_kernel.tolist()} != plain "
+             f"{c_plain.tolist()}")
+    rows, read = c_plain.tolist()
+    bytes_ms = (read * 3 * D * M * 2 + tokens * D * (2 + 4)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * 6 * D * M / BF16_FLOPS * 1e3
+    rec = {"tokens": tokens, "rows_routed": rows, "experts_read": read, "max_rel_err": err,
+           "ms": time_cuda(lambda: moe_experts.moe_experts(x, idx, w, w1, w3, w2), iters=10),
+           "plain_ms": time_cuda(lambda: moe_experts.moe_experts_plain(x, idx, w, w1, w3, w2),
+                                 iters=2, warmup=1),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
+    if hasattr(torch, "_grouped_mm"):
+        w13t = torch.cat([w1, w3], 1).transpose(1, 2)       # [E, D, 2M], column-major
+        w2t = w2.transpose(1, 2)                              # [E, M, D]
+        kept = (idx >= 0).all(1)                              # the library takes no dropped choice
+        xk, ik = x[kept], idx[kept].long()
+        try:
+            rec["library_ms"] = time_cuda(lambda: _grouped_mm(xk, ik, w13t, w2t, E, M, K),
+                                          iters=10)
+        except (RuntimeError, TypeError) as e:
+            rec["library_error"] = str(e)[:200]
+    return rec
+
+
+def lfm2_launches() -> dict:
+    """``lfm2_predict_answers`` at LFM2-24B-A2B's widths cut to 4 layers
+    (conv, conv, attention, conv: 2 dense, 2 with experts), B=8, 10 tokens:
+    the replayed steps' tokens equal the eager ones; ``moe_experts``
+    launches around one batch after its capture (the prefill's: the steps'
+    are inside graphs) and around the same batch run eagerly (the prefill's
+    and each step's), the counters zeroed just before and read just after."""
+    cfg = LFM2Config(layer_types=("conv", "conv", "full_attention", "conv"),
+                     num_hidden_layers=4)
+    model = Blip2LFM2(QFormerConfig(), cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                      device=DEV, seed=SEED)
+    n_moe, T = cfg.num_hidden_layers - cfg.num_dense_layers, 10
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(13, 44, BATCH)
+    ids = np.zeros((BATCH, 64), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, :n] = rng.randint(8, cfg.vocab_size, n)
+    N = QFormerConfig().scene_token_capacity
+    batch = {"pc_feat": torch.randn(BATCH, N, 1408, generator=g, device=DEV),
+             "pc": torch.randint(0, 256, (BATCH, N, 3), generator=g, device=DEV),
+             "pc_mask": torch.ones(BATCH, N, dtype=torch.int32, device=DEV),
+             "input_ids": ids, "input_mask": (np.arange(64)[None] < lens[:, None]).astype(np.int64)}
+    lfm2_predict_answers(model, batch, max_len=T)                 # captures
+    c0, r0 = lfm2_mod.decode_graph_captures, lfm2_mod.decode_graph_replays
+    reset_counts()
+    replayed = lfm2_predict_answers(model, batch, max_len=T)
+    torch.cuda.synchronize()
+    captured_launches = read_counts()["moe_experts"]
+    captures = lfm2_mod.decode_graph_captures - c0
+    replays = lfm2_mod.decode_graph_replays - r0
+    reset_counts()
+    eager = lfm2_predict_answers(model, batch, max_len=T, graphs=False)
+    torch.cuda.synchronize()
+    eager_launches = read_counts()["moe_experts"]
+    if not torch.equal(replayed, eager):
+        fail("lfm2_predict_answers: replayed tokens != eager tokens")
+    if captures != 0 or captured_launches != n_moe or eager_launches != n_moe * (1 + replays):
+        fail(f"lfm2_predict_answers: {captures} captures after set-up, moe_experts launches "
+             f"{captured_launches} a replayed batch (want {n_moe}), {eager_launches} eager "
+             f"(want {n_moe} x {1 + replays})")
+    del model
+    torch.cuda.empty_cache()
+    return {"moe_layers": n_moe, "steps_replayed": replays,
+            "launches_replayed_batch": captured_launches, "launches_eager_batch": eager_launches}
+
+
+def check_moe_experts() -> dict:
+    """The expert layer at a decode step's 8 tokens and a prefill's 616
+    (B=8, ~77 positions a row), and its launches on ``lfm2_predict_answers``."""
+    shapes = [measure_moe(8), measure_moe(616)]
+    rec = {k: sum(sh[k] for sh in shapes) for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [sh["library_ms"] for sh in shapes]
+    rec.update(library_ms=None if None in lib else sum(lib),
+               bound_by=shapes[-1]["bound_by"], max_abs_err=max(sh["max_rel_err"] for sh in shapes),
+               library="torch._grouped_mm: the two grouped products alone, on rows grouped by "
+                       "expert, without the routing weights, the sums or the dropped choices",
+               shapes=shapes, lfm2=lfm2_launches())
+    return rec
 
 
 def phase_forward(cfg, batch):
@@ -3582,7 +3718,12 @@ def main() -> int:
         "segment_plan": ("situation3d_tpu_torch/csrc/segment_plan.cu",
                          "situation3d_tpu/ops/pallas/gather.py:82", train_counts, step),
         "fps": ("situation3d_tpu_torch/csrc/fps.cu",
-                "situation3d_tpu/ops/pallas/fps.py:61", det_counts["forward"], det_forward)}
+                "situation3d_tpu/ops/pallas/fps.py:61", det_counts["forward"], det_forward),
+        "moe_experts": ("situation3d_tpu_torch/csrc/moe_experts.cu",
+                        "none: the JAX package has no experts",
+                        {"moe_experts": records["moe_experts"]["lfm2"]["launches_replayed_batch"]},
+                        "one B=8 lfm2_predict_answers batch replayed, LFM2-24B-A2B's widths at "
+                        "4 layers (2 with experts): the prefill's; the steps' are in graphs")}
     kernels = []
     for name, (src, replaces, path_counts, path) in sources.items():
         r = records[name]
@@ -3604,6 +3745,9 @@ def main() -> int:
             k["launches_votenet_forward_backward"] = det_counts["forward_backward"][name]
         if name in MAP_KERNELS:
             k["device_ms"] = r["device_ms"]
+        if name == "moe_experts":
+            k["shapes"] = r["shapes"]
+            k["launches_eager_batch"] = r["lfm2"]["launches_eager_batch"]
         if name == "scatter_add_rows":
             k["sum_only_ms"] = r["sum_only_ms"]     # ms is the whole call: sums + plans
         if name == "fused_sparse_conv":

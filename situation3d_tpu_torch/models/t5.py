@@ -25,7 +25,6 @@ the same step function on the same buffers, so both emit the same tokens.
 from __future__ import annotations
 
 import itertools
-from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 import torch
@@ -37,13 +36,13 @@ from situation3d_tpu_torch.config import T5Config
 from situation3d_tpu_torch.models.layers import Dense, Embed
 from situation3d_tpu_torch.models.relpos import (relative_position_bucket,
                                                  relative_position_matrix)
+from situation3d_tpu_torch.models.step_graphs import (GraphCache, GreedyTokens, capture_steps,
+                                                     eager, greedy_loop)
 from situation3d_tpu_torch.parallel import collectives
 from situation3d_tpu_torch.parallel.mesh import draw
-from situation3d_tpu_torch.utils.trace import span, spanned
+from situation3d_tpu_torch.utils.trace import spanned
 
 NEG_INF = -1e9
-GRAPH_KEYS = 4      # the greedy decode shapes a model keeps captured, the most recent
-GRAPH_WARMUP = 3    # eager steps on the capture stream before the first capture
 
 decode_graph_captures = 0   # +1 per greedy step graph captured, nowhere else
 decode_graph_replays = 0    # +1 per greedy step graph replayed, nowhere else
@@ -467,47 +466,35 @@ def beam_search_decode(model: T5ForConditionalGeneration, inputs_embeds, enc_mas
     return fin_seqs[torch.arange(B, device=dev), best]
 
 
-class GreedyBuffers:
+class GreedyBuffers(GreedyTokens):
     """The static state of one greedy decode shape: the encoder's output and
-    mask, every layer's cache slots (views of one flat buffer), the emitted
-    tokens ``out``, the next input ``tok``, the rows ``done`` and whether all
-    are (``finished``)."""
+    mask, every layer's cache slots (views of one flat buffer), and the
+    tokens (:class:`GreedyTokens`)."""
 
     def __init__(self, model: T5ForConditionalGeneration, enc: torch.Tensor,
                  enc_mask: torch.Tensor, max_len: int):
         cfg, B, dev = model.cfg, enc.shape[0], enc.device
+        super().__init__(B, max_len, dev)
         self.enc, self.enc_mask = torch.empty_like(enc), torch.empty_like(enc_mask)
         self.slots = torch.empty((cfg.num_decoder_layers, 2, B, cfg.num_heads,
                                   cfg.max_answer_len, cfg.d_kv), dtype=model.dtype, device=dev)
         self.cache = DecodeCache([{"key": kv[0], "value": kv[1]} for kv in self.slots.unbind(0)])
-        self.out = torch.empty((B, max_len), dtype=torch.long, device=dev)
-        self.tok = torch.empty((B, 1), dtype=torch.long, device=dev)
-        self.done = torch.empty(B, dtype=torch.bool, device=dev)
-        self.finished = torch.empty((), dtype=torch.bool, device=dev)
 
     def load(self, enc, enc_mask, start_id: int, pad_id: int) -> None:
         """A new batch: its inputs copied in, the slots zeroed, nothing emitted."""
         self.enc.copy_(enc)
         self.enc_mask.copy_(enc_mask)
         self.slots.zero_()
-        self.out.fill_(pad_id)
-        self.tok.fill_(start_id)
-        self.done.zero_()
+        self.reset(start_id, pad_id)
 
 
 def greedy_step(model: T5ForConditionalGeneration, b: GreedyBuffers, i: int,
                 eos_id: int, pad_id: int, check: bool) -> torch.Tensor:
-    """Greedy step ``i`` on ``b``, in place and without a host read: the next
-    token (pad once its row is done) into ``out[:, i]`` and ``tok``, the rows
-    done and, where ``check``, whether all are. Returns the step's logits."""
+    """Greedy step ``i`` on ``b``, in place and without a host read
+    (:meth:`GreedyTokens.emit`). Returns the step's logits."""
     b.cache.index = i
     logits = model.decode_step(b.enc, b.enc_mask, b.tok, b.cache)
-    nxt = logits[:, -1].argmax(-1).masked_fill(b.done, pad_id)
-    b.out[:, i] = nxt
-    b.done |= nxt == eos_id
-    b.tok.copy_(nxt[:, None])
-    if check:
-        b.finished.copy_(b.done.all())
+    b.emit(i, logits[:, -1], eos_id, pad_id, check)
     return logits
 
 
@@ -520,21 +507,10 @@ class CapturedDecode:
         global decode_graph_captures
         self.buffers = b = GreedyBuffers(model, enc, enc_mask, max_len)
         b.load(enc, enc_mask, start_id, pad_id)
-        here = torch.cuda.current_stream(enc.device)
-        side = torch.cuda.Stream(enc.device)
-        side.wait_stream(here)
-        self.graphs, self.logits = [], []
-        with torch.cuda.device(enc.device), torch.cuda.stream(side):
-            pool = torch.cuda.graph_pool_handle()
-            for i in range(min(GRAPH_WARMUP, max_len)):   # cuBLAS and the allocator, off the graph
-                greedy_step(model, b, i, eos_id, pad_id, True)
-            for i in range(max_len):
-                g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g, pool=pool, stream=side):
-                    self.logits.append(greedy_step(model, b, i, eos_id, pad_id, i + 1 < max_len))
-                self.graphs.append(g)
-                decode_graph_captures += 1
-        here.wait_stream(side)
+        self.graphs, self.logits = capture_steps(
+            lambda i, check: greedy_step(model, b, i, eos_id, pad_id, check),
+            range(max_len), enc.device)
+        decode_graph_captures += len(self.graphs)
 
     def replay(self, i: int) -> None:
         global decode_graph_replays
@@ -549,38 +525,21 @@ def decode_storage(model: T5ForConditionalGeneration) -> tuple:
                  for t in itertools.chain(m.parameters(), m.buffers()))
 
 
-class DecodeGraphs:
-    """A model's captured greedy decodes, the ``GRAPH_KEYS`` most recent keys
+class DecodeGraphs(GraphCache):
+    """A model's captured greedy decodes (``models/step_graphs.py``), keyed
     ``(B, L_enc, max_len, dtype, mask dtype, eos, pad, device, inference
-    mode)``; all dropped when the decode's parameter storage moved. A copy
-    of the model starts with none."""
-
-    def __init__(self):
-        self.storage, self.keys = None, OrderedDict()
-
-    def __deepcopy__(self, memo):
-        return DecodeGraphs()
+    mode)`` and dropped when :func:`decode_storage` moved."""
 
     def get(self, model: T5ForConditionalGeneration, enc, enc_mask, max_len: int,
             start_id: int, eos_id: int, pad_id: int) -> Optional[CapturedDecode]:
         """This call's captured decode, captured at its key's first call; None
         where the steps run eagerly: CPU tensors, grad on, a stream capturing."""
-        if (enc.device.type != "cuda" or torch.is_grad_enabled()
-                or torch.cuda.is_current_stream_capturing()):
+        if eager(enc.device):
             return None
-        storage = decode_storage(model)
-        if storage != self.storage:
-            self.keys.clear()
-            self.storage = storage
         key = (*enc.shape[:2], max_len, enc.dtype, enc_mask.dtype, eos_id, pad_id,
                enc.device, torch.is_inference_mode_enabled())
-        if key in self.keys:
-            self.keys.move_to_end(key)
-            return self.keys[key]
-        while len(self.keys) >= GRAPH_KEYS:
-            self.keys.popitem(last=False)
-        self.keys[key] = CapturedDecode(model, enc, enc_mask, max_len, start_id, eos_id, pad_id)
-        return self.keys[key]
+        return self.lookup(key, decode_storage(model), lambda: CapturedDecode(
+            model, enc, enc_mask, max_len, start_id, eos_id, pad_id))
 
 
 @torch.no_grad()
@@ -596,15 +555,6 @@ def greedy_decode(model: T5ForConditionalGeneration, inputs_embeds, enc_mask,
                                        eos_id, pad_id)
     b = captured.buffers if captured else GreedyBuffers(model, enc, enc_mask, max_len)
     b.load(enc, enc_mask, decoder_start_id, pad_id)
-    # a step's span holds its token and the check that ends the loop after it
-    for i in range(max_len):
-        check = i + 1 < max_len
-        with span("t5.decode_step"):
-            if captured:
-                captured.replay(i)
-            else:
-                greedy_step(model, b, i, eos_id, pad_id, check)
-            if check and bool(b.finished):
-                break
-    # the captured buffers serve the key's next call
-    return b.out.clone() if captured else b.out
+    return greedy_loop(b, range(max_len),
+                       lambda i, check: greedy_step(model, b, i, eos_id, pad_id, check),
+                       captured.replay if captured else None, "t5.decode_step")

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "s3d_segment_plan": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "s3d_segment_plan_scratch_ints": [_I, _I, _I],
     "s3d_fps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "s3d_moe_experts": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _RESTYPES = {"s3d_segment_plan_scratch_ints": ctypes.c_longlong}   # else c_int
 

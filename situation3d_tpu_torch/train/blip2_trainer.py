@@ -90,22 +90,28 @@ def blip2_train_step(cfg: Config, state: Blip2TrainState, batch: Dict[str, Any],
     this rank's rows (``shard_batch``)."""
     model = state.model
     model.train()
-    loss = model(batch, axis=mesh.data_axis if mesh and mesh.world > 1 else None)["loss"]
-    state.optimizer.discard()
-    loss.backward()
-    collectives.pmean_grads(state.optimizer.params)
-    metrics = {"loss": loss.detach()}
-    if cfg.train.nan_guard != "off":
-        finite = grads_finite(loss.detach(), state.optimizer.params, cfg.train.nan_guard)
-        finite = collectives.pmin(finite.to(torch.float32)).bool()    # one verdict
-        metrics["grads_finite"] = finite.to(torch.float32)
-        if bool(finite):
-            state.optimizer.step()
+    with span("train.step", request=state.step + 1):
+        with span("train.loss"):
+            loss = model(batch, axis=mesh.data_axis if mesh and mesh.world > 1 else None)["loss"]
+        state.optimizer.discard()
+        with span("train.backward"):
+            loss.backward()
+        collectives.pmean_grads(state.optimizer.params)
+        metrics = {"loss": loss.detach()}
+        if cfg.train.nan_guard != "off":
+            with span("train.nan_guard"):
+                finite = grads_finite(loss.detach(), state.optimizer.params, cfg.train.nan_guard)
+                finite = collectives.pmin(finite.to(torch.float32)).bool()    # one verdict
+                metrics["grads_finite"] = finite.to(torch.float32)
+                finite = bool(finite)
         else:
-            state.optimizer.discard()
-    else:
-        state.optimizer.step()
-    state.step += 1
+            finite = True
+        with span("train.optimizer"):
+            if finite:
+                state.optimizer.step()
+            else:
+                state.optimizer.discard()
+        state.step += 1
     return metrics
 
 

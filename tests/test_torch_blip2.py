@@ -189,6 +189,28 @@ def test_one_trainer_update_matches_reference(ref, stepped):
     assert moved > 1000
 
 
+def test_train_step_spans_leave_the_update_bit_equal(ref):
+    """``blip2_train_step`` under a recording CPU profiler opens its spans
+    and gives the update it gives with none recording, bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    tcfg = ref["tcfg"]
+    models = []
+    for record in (False, True):
+        m = _port_model(tcfg, ref["params"])
+        state = ttrainer.Blip2Trainer(tcfg, m, 10).state
+        if record:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                ttrainer.blip2_train_step(tcfg, state, ref["batch"])
+            names = {e.name for e in prof.events()}
+        else:
+            ttrainer.blip2_train_step(tcfg, state, ref["batch"])
+        models.append(m)
+    assert {"train.step", "train.loss", "train.backward", "train.nan_guard",
+            "train.optimizer"} <= names
+    for (n, p), q in zip(models[0].named_parameters(), models[1].parameters()):
+        assert torch.equal(p, q), n
+
+
 def test_checkpoint_roundtrip_holds_the_trainable_state(ref, stepped, tmp_path):
     """A checkpoint keeps the trainable tensors, the optimizer and the step;
     ``resume`` puts them back into a model rebuilt from the same seed, and a
