@@ -5,7 +5,8 @@ each against its plain PyTorch version at the shapes the main paths give it,
 then drives the port's main paths — the full-width SIG3D scene-QA forward, a
 few optimizer steps of the trainer in both training configurations (scene
 encoder frozen, and trained too: the UNet's decoder then moves by weight
-decay alone), the scene-cache serving form, the whole MinkUNet with its
+decay alone), the scene-cache serving form (with the question side replayed
+from its captured CUDA graph held bit-equal to the eager forward), the whole MinkUNet with its
 decoder and 768-d head (``sparse.final_result``), the full-width VoteNet
 detection path (forward, boxes and mAP, detection loss and its gradients),
 SIG3D trained and evaluated from SQA3D-layout files written on the spot
@@ -134,6 +135,7 @@ from situation3d_tpu_torch.models.sig3d import (SIG3D, init_random_weights,
 from situation3d_tpu_torch.models.vit import init_vision_encoder
 from situation3d_tpu_torch.models.votenet import VoteNet
 from situation3d_tpu_torch.models import blip2_lfm2 as lfm2_mod
+from situation3d_tpu_torch.models import sig3d as sig3d_mod
 from situation3d_tpu_torch.models import t5 as t5_mod
 from situation3d_tpu_torch.models.lfm2 import LFM2Config
 from situation3d_tpu_torch.ops import native, pointnet2
@@ -164,6 +166,8 @@ F32_FLOPS = 67e12     # float32 outside the tensor cores
 CONV_ATOL = 2e-4      # f32 accumulation in another order; outputs are O(1)
 SERVE_RTOL = 1e-2     # bf16 rounding (2^-8) when the same question is answered in a batch of 6
 SERVE_SAME_RTOL = 0.0  # same question, same batch size: pooling is deterministic, bit-equal
+QUESTION_BATCH = 32   # the answer cells' batch: the replayed question side's check and timing
+QUESTION_CALLS = 3    # batches of one key, each replayed and held against the eager forward
 SMALL_ATOL = 1e-3     # f32 small model, card (kernels) vs CPU (plain versions)
 SEED = 0
 BATCH = 8
@@ -1215,7 +1219,7 @@ def phase_forward(cfg, batch):
         expected = {"fused_sparse_conv": 1 + 4 + 2 * sum(cfg.sparse.layers[:4]),
                     "k3_map_lookup": 3, "k3_map_lookup_bits": 1, "k5_map_lookup": 1,
                     "gather_rows": 1, "scatter_add_rows": 2,   # token pooling
-                    "segment_plan": 1, "fps": 0}        # one plan, two sums
+                    "segment_plan": 1, "fps": 0, "moe_experts": 0}   # one plan, two sums
         if counts != expected:
             fail(f"kernel launches on one forward {counts} != expected {expected}")
         for _ in range(2):
@@ -1327,7 +1331,8 @@ def _expected_train_counts(cfg, unfrozen: bool) -> dict:
     gather's."""
     n_conv = 1 + 4 + 2 * sum(cfg.sparse.layers[:4])
     exp = {"fused_sparse_conv": n_conv, "k3_map_lookup": 3, "k3_map_lookup_bits": 1,
-           "k5_map_lookup": 1, "gather_rows": 1, "scatter_add_rows": 2, "segment_plan": 1, "fps": 0}
+           "k5_map_lookup": 1, "gather_rows": 1, "scatter_add_rows": 2, "segment_plan": 1, "fps": 0,
+           "moe_experts": 0}
     if unfrozen:
         B = BATCH
         chunks = 0
@@ -1540,6 +1545,92 @@ def phase_serving(cfg, model, batch):
          max_rel_diff_vs_full_forward=worst, tolerance=SERVE_RTOL,
          launches=counts, seconds=round(dt, 4),
          questions_per_s=round(n_scenes * n_q / dt, 3))
+    serving_question_graphs(cfg, model, batch, cache, answers[0][0])
+
+
+def _eager_forward(model, batch, **kw):
+    """``model(batch)`` with its question side eager: grad on, with nothing
+    requiring it, so that autograd records nothing."""
+    flags = [p.requires_grad for p in model.parameters()]
+    model.requires_grad_(False)
+    try:
+        with torch.enable_grad():
+            return model(batch, **kw)
+    finally:
+        for p, f in zip(model.parameters(), flags):
+            p.requires_grad_(f)
+
+
+def _question_batch(cfg, batch, s: int, rng) -> dict:
+    """``QUESTION_BATCH`` fresh questions, of 5-40 words, about scene ``s``
+    of ``batch``, in its situation."""
+    B, L = QUESTION_BATCH, cfg.data.max_text_len
+    q_mask = (np.arange(L)[None] < rng.randint(5, 41, (B, 1))).astype(np.int32)
+    return {"s_ids": batch["s_ids"][s:s + 1].expand(B, L),
+            "s_mask": batch["s_mask"][s:s + 1].expand(B, L),
+            "q_ids": torch.as_tensor(rng.randint(4, 30000, (B, L)).astype(np.int32)),
+            "q_mask": torch.as_tensor(q_mask),
+            "auxiliary_task": batch["auxiliary_task"][s:s + 1].expand(B, 7)}
+
+
+def serving_question_graphs(cfg, model, batch, cache, sid) -> dict:
+    """The question side replayed from its captured graph against the eager
+    forward on the card, at the answer cells' B=32: ``QUESTION_CALLS``
+    batches through ``SceneCache.answer`` (tokens of one cached scene) and
+    as many full forwards (the batch's scenes, repeated), under inference
+    mode as the cells run them; every output bit-equal, one capture and a
+    replay a batch each, the first batch's outputs unchanged by the later
+    replays. Then one B=32 question side timed each way (CUDA events)."""
+    rng = np.random.RandomState(SEED + 4)
+    B, n = QUESTION_BATCH, batch["voxel_mask"].shape[0]
+    toks, pos = cache._cache[sid]
+    reps = -(-B // n)
+    voxels = {k: v.repeat(reps, *([1] * (v.dim() - 1)))[:B] for k, v in batch.items()
+              if k.startswith("voxel_")}
+    rec = {"batch_size": B, "calls": QUESTION_CALLS}
+    for form in ("scene_cache", "full_forward"):
+        model.question_graphs.keys.clear()
+        c0, r0 = sig3d_mod.question_graph_captures, sig3d_mod.question_graph_replays
+        served = []
+        for k in range(QUESTION_CALLS):
+            q = _question_batch(cfg, batch, k % n, rng)
+            if form == "scene_cache":
+                with torch.inference_mode():
+                    got = cache.answer(sid, q)
+                eager_in = {**q, "scene_tokens": toks.expand(B, *toks.shape[1:]),
+                            "scene_token_positions": pos.expand(B, *pos.shape[1:])}
+                kw = {}
+            else:
+                kw = {"sample_draws": make_sample_draws(B, cfg.sparse.capacities[-1],
+                                                        cfg.model.num_scene_tokens,
+                                                        torch.Generator().manual_seed(SEED + k),
+                                                        DEV)}
+                eager_in = {**q, **voxels}
+                with torch.inference_mode():
+                    got = model(eager_in, **kw)
+            served.append((got, {kk: v.clone() for kk, v in got.items()}, eager_in, kw))
+        captures = sig3d_mod.question_graph_captures - c0
+        replays = sig3d_mod.question_graph_replays - r0
+        unequal = []
+        for k, (got, kept, eager_in, kw) in enumerate(served):
+            want = _eager_forward(model, eager_in, **kw)
+            if set(got) != set(want):
+                unequal.append((k, sorted(set(got) ^ set(want))))
+            unequal += [(k, key) for key in want if key in got and not (
+                torch.equal(got[key], want[key]) and torch.equal(got[key], kept[key]))]
+        rec[form] = {"captures": captures, "replays": replays, "bit_equal": not unequal}
+        if unequal or captures != 1 or replays != QUESTION_CALLS:
+            fail(f"serving question graphs, {form}: {rec[form]}; outputs that differ from the "
+                 f"eager forward (batch, key): {unequal[:8]}")
+        if form == "scene_cache":
+            (cap,) = model.question_graphs.keys.values()
+            with torch.inference_mode():
+                rec["eager_question_us"] = round(1e3 * time_cuda(
+                    lambda: model._question(cap.inputs, B), iters=10), 1)
+                rec["replayed_question_us"] = round(1e3 * time_cuda(cap.replay, iters=10), 1)
+    emit("serving_question_graphs", **rec)
+    model.question_graphs.keys.clear()
+    return rec
 
 
 def phase_reference():

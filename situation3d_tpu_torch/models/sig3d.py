@@ -13,9 +13,17 @@ LSTM encoder's embeddings; the reference's MPNet drops nowhere); the scene
 encoder's batch norms use running statistics in training too, as in the
 reference, and while none of the encoder's parameters requires a gradient
 the scene tower runs under ``torch.no_grad()``.
+
+In evaluation form on a card, with grad off, the question side (the
+language encoder, then ``_fuse``) runs as one CUDA graph per shape
+(:class:`QuestionGraphs`, on ``models/step_graphs.py``): captured at the
+shape's first call, after the scene tokens, and replayed on static inputs
+the batch is copied into. The same kernels run in the same order, so the
+outputs equal the eager forward's. The GloVe + LSTM encoder stays eager.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -24,10 +32,11 @@ from torch import nn
 
 from situation3d_tpu_torch.config import Config
 from situation3d_tpu_torch.device import resolve_device, tree_to_device
-from situation3d_tpu_torch.models.lang import LangModule
+from situation3d_tpu_torch.models.lang import GloveLSTMEncoder, LangModule
 from situation3d_tpu_torch.models.layers import (Dense, dropout,  # noqa: F401
                                                   init_random_weights)
 from situation3d_tpu_torch.models.mcan import SA, SGA, AttFlat
+from situation3d_tpu_torch.models.step_graphs import GraphCache, capture_steps, eager
 from situation3d_tpu_torch.ops.cuda.gather_rows import (GatherRows,
                                                         ScatterAddRows,
                                                         scatter_add_rows,
@@ -40,6 +49,11 @@ from situation3d_tpu_torch.utils.trace import BATCH, span, spanned
 
 ROT_DIMS = {"__quat__": 4, "__angle__": 2, "__6d__": 6}
 _INT32_MAX = 2 ** 31 - 1
+TEXT_INPUTS = ("s_ids", "s_mask", "q_ids", "q_mask")
+CALLER_OUTPUTS = ("scene_positions", "att_feat_pre")   # returned as the caller's tensors
+
+question_graph_captures = 0   # +1 per question-side graph captured, nowhere else
+question_graph_replays = 0    # +1 per question-side graph replayed, nowhere else
 
 
 def rotation_dim(tag: str) -> int:
@@ -164,12 +178,19 @@ class SIG3D(nn.Module):
         n_flat = 2 if mc.no_3d else 3
         self.answer_cls_fc1 = Dense(n_flat * F_out, H, dtype)
         self.answer_cls_fc2 = Dense(H, num_answers, dtype)
+        self.question_graphs = QuestionGraphs()
         self.to(dev)
         self.eval()
 
     @property
     def device(self) -> torch.device:
         return self.answer_cls_fc2.weight.device
+
+    @property
+    def question_graphable(self) -> bool:
+        """Whether the question side may be captured: not with the GloVe +
+        LSTM encoder, whose cuDNN RNN stays eager."""
+        return not isinstance(self.lang_net.encoder, GloveLSTMEncoder)
 
     def train(self, mode: bool = True):
         """The scene encoder stays in evaluation form whatever the mode."""
@@ -239,35 +260,77 @@ class SIG3D(nn.Module):
                 ) -> Dict[str, Any]:
         """``train`` turns dropout on; its masks come from
         ``dropout_generator`` (``generator`` when that is not given), the
-        token sampling from ``sample_draws`` or ``generator``."""
+        token sampling from ``sample_draws`` or ``generator``. In evaluation
+        form on a card with grad off the question side is replayed from its
+        captured graph (:meth:`_replay_question`)."""
         with span("sig3d.forward", request=BATCH, top=True):
             dgen = dropout_generator if dropout_generator is not None else generator
             out: Dict[str, Any] = {}
             b = self._to_device(batch)
+            if not train and self.question_graphable and not eager(self.device):
+                tokens = self._scene_tokens(out, b, sample_draws, generator)
+                with span("sig3d.question"):
+                    return self._replay_question(out, b, tokens)
 
             # ---- language branch ----------------------------------------
             with span("sig3d.language"):
                 lang = self.lang_net(b["s_ids"], b["s_mask"], b["q_ids"], b["q_mask"],
                                      train, dgen)
 
-            # ---- vision branch ------------------------------------------
-            tokens = None
-            if "scene_tokens" in b:
-                # multi-question serving: the scene tower ran once per scene
-                # (encode_scene); this pass reuses its pooled tokens
-                tokens = b["scene_tokens"].to(self.dtype), b["scene_token_positions"]
-            elif not self.cfg.model.no_3d:
-                enc, overflow = self._run_scene_encoder(b)
-                for k, v in overflow.items():
-                    out[f"overflow/{k}"] = v.sum()
-                if "openscene_out" in enc:
-                    # per-voxel CLIP-space features for segmentation eval
-                    # (eval.py:293-297: openscene_out @ text_features.T)
-                    out["openscene_out"] = enc["openscene_out"].feats
-                tokens = self._pool_tokens(enc["feat_bottleneck"], sample_draws, generator)
-
+            tokens = self._scene_tokens(out, b, sample_draws, generator)
+            if tokens is not None:
+                tokens = tokens[0].to(self.dtype), tokens[1]
             with span("sig3d.fusion"):
                 return self._fuse(out, b, lang, tokens, train, dgen)
+
+    def _scene_tokens(self, out: Dict[str, Any], b: Dict[str, Any], sample_draws,
+                      generator) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The vision branch: the scene tokens and their positions, the
+        batch's own (``scene_tokens``, from ``SceneCache``) or pooled from
+        the scene encoder, whose overflow counters (and, under
+        ``sparse.final_result``, per-voxel head) go into ``out``; None
+        without a scene."""
+        if "scene_tokens" in b:
+            # multi-question serving: the scene tower ran once per scene
+            # (encode_scene); this pass reuses its pooled tokens
+            return b["scene_tokens"], b["scene_token_positions"]
+        if self.cfg.model.no_3d:
+            return None
+        enc, overflow = self._run_scene_encoder(b)
+        for k, v in overflow.items():
+            out[f"overflow/{k}"] = v.sum()
+        if "openscene_out" in enc:
+            # per-voxel CLIP-space features for segmentation eval
+            # (eval.py:293-297: openscene_out @ text_features.T)
+            out["openscene_out"] = enc["openscene_out"].feats
+        return self._pool_tokens(enc["feat_bottleneck"], sample_draws, generator)
+
+    def _question(self, q: Dict[str, torch.Tensor], batch: int) -> Dict[str, Any]:
+        """The question side in evaluation form, the body a captured graph
+        replays: the language encoder, then :meth:`_fuse` on the scene tokens
+        broadcast to ``batch`` rows. ``q`` as :func:`question_inputs` gives
+        it."""
+        lang = self.lang_net(q["s_ids"], q["s_mask"], q["q_ids"], q["q_mask"])
+        tokens = None
+        if "scene_tokens" in q:
+            tokens = (q["scene_tokens"].expand(batch, -1, -1).to(self.dtype),
+                      q["scene_token_positions"].expand(batch, -1, -1))
+        return self._fuse({}, q, lang, tokens, False, None)
+
+    def _replay_question(self, out: Dict[str, Any], b: Dict[str, Any], tokens
+                         ) -> Dict[str, Any]:
+        """The question side from its captured graph: the batch's inputs
+        copied into the key's static buffers, one replay, the outputs cloned
+        into ``out`` (a caller may keep them across the key's next replay);
+        the token features and positions are the caller's own."""
+        q = question_inputs(b, tokens)
+        captured = self.question_graphs.get(self, q, b["s_ids"].shape[0])
+        captured.load(q)
+        captured.replay()
+        out.update((k, v.clone()) for k, v in captured.out.items() if k not in CALLER_OUTPUTS)
+        if tokens is not None:
+            out["scene_positions"], out["att_feat_pre"] = tokens[1], tokens[0].to(self.dtype)
+        return out
 
     def _fuse(self, out: Dict[str, Any], b: Dict[str, Any], lang, tokens, train: bool,
               dgen) -> Dict[str, Any]:
@@ -359,3 +422,70 @@ class SIG3D(nn.Module):
         out["answer_scores"] = head(fuse, "answer_cls", mc.answer_pdrop).float()
         return out
 
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """The one row a batch-broadcast tensor repeats (stride 0 along the
+    batch: ``SceneCache``'s expanded tokens), else the tensor."""
+    return t[:1] if t.shape[0] > 1 and t.stride(0) == 0 else t
+
+
+def question_inputs(b: Dict[str, Any], tokens) -> Dict[str, torch.Tensor]:
+    """What the question side reads of a batch on the device: the texts and,
+    with scene ``tokens`` (features, positions), the situation and the
+    tokens, a broadcast row kept as that one row."""
+    q = {k: b[k] for k in TEXT_INPUTS}
+    if tokens is not None:
+        q["auxiliary_task"] = b["auxiliary_task"]
+        q["scene_tokens"], q["scene_token_positions"] = (_rows(t) for t in tokens)
+    return q
+
+
+def static_inputs(q: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A key's static buffers: contiguous copies of the question side's
+    inputs."""
+    return {k: torch.empty_like(v, memory_format=torch.contiguous_format).copy_(v)
+            for k, v in q.items()}
+
+
+def question_storage(model: SIG3D) -> tuple:
+    """Where the question side's parameters and buffers live, every module
+    but the scene encoder: the captured graphs read them through these
+    addresses."""
+    return tuple(t.data_ptr() for name, m in model.named_children() if name != "scene_encoder"
+                 for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+class CapturedQuestion:
+    """One key's static inputs and its question side captured on them, in
+    a memory pool of its own; ``out``: the outputs in that pool."""
+
+    def __init__(self, model: SIG3D, q: Dict[str, torch.Tensor], batch: int):
+        global question_graph_captures
+        self.inputs = static_inputs(q)     # the warm-up before the capture reads them
+        (self.graph,), (self.out,) = capture_steps(
+            lambda i, check: model._question(self.inputs, batch), range(1), model.device)
+        question_graph_captures += 1
+
+    def load(self, q: Dict[str, torch.Tensor]) -> None:
+        for k, v in q.items():
+            self.inputs[k].copy_(v)
+
+    def replay(self) -> None:
+        global question_graph_replays
+        self.graph.replay()
+        question_graph_replays += 1
+
+
+class QuestionGraphs(GraphCache):
+    """A model's captured question sides (``models/step_graphs.py``), keyed
+    by each input's name, shape and dtype (the batch size, the text lengths,
+    the token rows: 1 for ``SceneCache``'s tokens, the batch's otherwise),
+    the inference mode and the device; dropped when :func:`question_storage`
+    moved."""
+
+    def get(self, model: SIG3D, q: Dict[str, torch.Tensor], batch: int) -> CapturedQuestion:
+        """The capture of this call's key, made at the key's first call."""
+        key = (tuple((k, tuple(v.shape), v.dtype) for k, v in q.items()),
+               torch.is_inference_mode_enabled(), model.device)
+        return self.lookup(key, question_storage(model),
+                           lambda: CapturedQuestion(model, q, batch))

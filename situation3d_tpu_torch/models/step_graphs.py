@@ -1,6 +1,7 @@
 """Greedy decoding for the port's decoders (``models/t5.py``,
 ``models/blip2_lfm2.py``): the tokens' static state, the step loop, and the
-steps captured as CUDA graphs.
+steps captured as CUDA graphs. SIG3D's question side
+(``models/sig3d.py:QuestionGraphs``) is captured the same way, as one step.
 
 A decode key (its shapes, ids and device) gets static buffers and one graph
 per step index, captured at the key's first call in one memory pool on a
@@ -23,7 +24,7 @@ import torch
 
 from situation3d_tpu_torch.utils.trace import span
 
-GRAPH_KEYS = 4      # the decode keys a model keeps captured, the most recent
+GRAPH_KEYS = 4      # the keys a model keeps captured, the most recent
 GRAPH_WARMUP = 3    # eager steps on the capture stream before the first capture
 
 
@@ -103,7 +104,7 @@ def capture_steps(step: Callable[[int, bool], torch.Tensor], steps: range, devic
 
 
 class GraphCache:
-    """A model's captured decodes by key, the ``GRAPH_KEYS`` most recent; all
+    """A model's captures by key, the ``GRAPH_KEYS`` most recent; all
     dropped when the storage fingerprint changes."""
 
     def __init__(self):

@@ -21,7 +21,8 @@ The spans, outermost first: ``train.step`` (``train.loss``,
 ``train.optimizer``, ``train.metrics``), ``train.fetch``,
 ``sig3d.forward``, ``serving.encode``, ``serving.answer`` (``sig3d.input``,
 ``sig3d.language``, ``sig3d.plan``, ``sig3d.encoder``, ``sig3d.pool``,
-``sig3d.fusion``), ``blip2.predict`` (``blip2.qformer``, then
+``sig3d.fusion``; on a card in evaluation form ``sig3d.question`` in place of
+``sig3d.language`` and ``sig3d.fusion``), ``blip2.predict`` (``blip2.qformer``, then
 ``t5.encoder`` and ``t5.decode_step``, or ``lfm2.prefill`` and
 ``lfm2.decode_step``). The 3D-LLM's training step has ``train.step`` with
 ``train.loss``, ``train.backward``, ``train.nan_guard`` and

@@ -8,6 +8,8 @@ float32, atol 1e-3 on the scores: the two frameworks sum the same products in
 another order through 21 sparse convs, a transformer layer and the MCAN
 blocks, and use their own ``erf``/``exp``; observed differences are ~1e-6.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,9 @@ import torch
 
 from situation3d_tpu.models import sig3d as jsig
 from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
+from situation3d_tpu_torch.eval.serving import SceneCache
 from situation3d_tpu_torch.models import sig3d as tsig
+from situation3d_tpu_torch.models import step_graphs
 
 from torch_port_util import (jax_sample_draws, randomize_variables, scene_batch,
                              t2n, tiny_cfgs, to_numpy_tree)
@@ -190,3 +194,99 @@ def test_converter_raises_on_missing_leaf_and_shape_mismatch(setup):
     model.extra = torch.nn.Linear(2, 2)
     with pytest.raises(RuntimeError, match="extra.weight"):
         load_jax_variables(model, params, stats)
+
+
+def _assert_outputs_equal(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("tokens", ["pooled", "cached"])
+def test_question_body_on_static_buffers_equals_forward(setup, tokens):
+    """The body a captured question side replays, run eagerly on a key's
+    static buffers, gives every output of ``SIG3D.forward`` bit for bit:
+    with the full forward's pooled ``[B, N, C]`` tokens, and with
+    ``SceneCache``'s ``[1, N, C]`` tokens broadcast to the batch, which the
+    buffers hold as their one row."""
+    m, batch = setup["tmodel"], setup["batch"]
+    with torch.no_grad():
+        if tokens == "pooled":
+            want = m(batch, sample_draws=setup["draws"])
+            b = m._to_device(batch)
+            q = tsig.question_inputs(b, (want["att_feat_pre"], want["scene_positions"]))
+        else:
+            cache = SceneCache(m, device="cpu")
+            cache.encode("s", {k: v[:1] for k, v in batch.items() if k.startswith("voxel_")},
+                          generator=torch.Generator().manual_seed(6))
+            b = m._to_device({k: v[[0, 0, 0]] for k, v in batch.items()
+                              if not k.startswith("voxel_")})
+            want = cache.answer("s", b)
+            b["scene_tokens"] = want["att_feat_pre"]
+            b["scene_token_positions"] = want["scene_positions"]
+            q = tsig.question_inputs(b, (b["scene_tokens"], b["scene_token_positions"]))
+        rows = 1 if tokens == "cached" else B
+        assert q["scene_tokens"].shape[0] == q["scene_token_positions"].shape[0] == rows
+        got = m._question(tsig.static_inputs(q), b["s_ids"].shape[0])
+    _assert_outputs_equal(got, {k: v for k, v in want.items() if not k.startswith("overflow/")})
+
+
+@pytest.mark.parametrize("how", ["cpu", "grad", "train", "lstm"])
+def test_question_side_stays_eager(setup, how, monkeypatch):
+    """Nothing is captured or replayed on the CPU, with grad on, in training
+    form, or with the GloVe + LSTM encoder, whose cuDNN RNN stays eager
+    (decided by the encoder's type): the counters stay put and the model
+    keeps no key. The last two pretend a card (``eager`` false)."""
+    m, batch, draws = setup["tmodel"], setup["batch"], setup["draws"]
+    counts = (tsig.question_graph_captures, tsig.question_graph_replays)
+    assert m.question_graphable
+    if how == "cpu":
+        with torch.no_grad():
+            m(batch, sample_draws=draws)
+    elif how == "grad":
+        assert step_graphs.eager(torch.device("cuda"))       # grad on: eager on a card too
+        m(batch, sample_draws=draws)
+    elif how == "train":
+        with torch.no_grad():
+            want = m(batch, sample_draws=draws, train=True,
+                     dropout_generator=torch.Generator().manual_seed(1))
+            monkeypatch.setattr(tsig, "eager", lambda device: False)
+            got = m(batch, sample_draws=draws, train=True,
+                    dropout_generator=torch.Generator().manual_seed(1))
+        _assert_outputs_equal(got, want)
+    else:
+        _, cfg = tiny_cfgs(("model.lang_model=lstm", "lang.glove_dim=8"))
+        lstm = tsig.SIG3D(cfg, 12, device="cpu")
+        tsig.init_random_weights(lstm, 0)
+        assert not lstm.question_graphable
+        monkeypatch.setattr(tsig, "eager", lambda device: False)
+        with torch.no_grad():
+            out = lstm(batch, sample_draws=draws)
+        assert out["answer_scores"].shape == (B, 12)
+        m = lstm
+    assert (tsig.question_graph_captures, tsig.question_graph_replays) == counts == (0, 0)
+    assert not m.question_graphs.keys
+
+
+def test_question_storage_moves_with_a_swapped_storage_only(setup):
+    """The captured question side reads the weights through their addresses:
+    the storage fingerprint stays under an in-place update and moves where a
+    parameter's storage is swapped; the scene encoder, outside the graph, is
+    not in it; a copy of the model keeps no graph."""
+    m = copy.deepcopy(setup["tmodel"])
+    assert isinstance(m.question_graphs, tsig.QuestionGraphs) and not m.question_graphs.keys
+    base = tsig.question_storage(m)
+    outside = [t for n, t in (*m.named_parameters(), *m.named_buffers())
+               if not n.startswith("scene_encoder.")]
+    assert len(base) == len(outside) == len(set(base))
+    with torch.no_grad():
+        for p in m.parameters():
+            p.mul_(1.5).add_(0.25)
+    assert tsig.question_storage(m) == base
+    enc = next(m.scene_encoder.parameters())
+    enc.data = enc.data.clone()
+    assert tsig.question_storage(m) == base
+    w = m.dec_q0.mhatt2.linear_q.weight
+    w.data = w.data.clone()
+    moved = tsig.question_storage(m)
+    assert moved != base and sum(a != b for a, b in zip(moved, base)) == 1
