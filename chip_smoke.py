@@ -515,21 +515,14 @@ def check_conv_backward(cfg, L, B, records) -> None:
     g = torch.Generator(device=DEV).manual_seed(SEED + 11)
     rec = {"ms": 0.0, "plain_ms": 0.0, "dx_ms": 0.0, "dx_bound_ms": 0.0, "max_rel_err_f32": 0.0,
            "max_rel_err_bf16": 0.0, "shapes": []}
-    classes = [c + (True,) for c in _conv_classes(cfg)]
-    # the scatter form (no transpose map): the UNet never takes it, so it is
-    # held to the plain version here on the deepest class and adds to no total
-    last = classes[-1]
-    classes.append((last[0] + "_no_map",) + last[1:6] + (0, False))
-    for name, lvl_in, key, lvl_map, c_in, c_out, count, with_map in classes:
+    for name, lvl_in, key, lvl_map, c_in, c_out, count in _conv_classes(cfg):
         nbr = L[lvl_map][key]
         t_map, flip = _tmap_of(L, lvl_in, key, lvl_map)
         v_in, v_out, K = L[lvl_in]["coords"].shape[1], nbr.shape[1], nbr.shape[2]
         want_dx = name != "conv0_k5"          # conv0's input needs no gradient
 
         def conv(f, w):
-            if with_map:
-                return sparse_conv._SparseConvTmap.apply(f, nbr, t_map, w, flip)
-            return sparse_conv.sparse_conv_apply(f, nbr, w)
+            return sparse_conv._SparseConvTmap.apply(f, nbr, t_map, w, flip)
         f32 = (torch.randn(B, v_in, c_in, generator=g, device=dev)
                * L[lvl_in]["mask"][..., None])
         w = (torch.randn(K, c_in, c_out, generator=g, device=dev)
@@ -562,7 +555,7 @@ def check_conv_backward(cfg, L, B, records) -> None:
         pms = time_cuda(lambda: torch.autograd.grad(ref, wrt, cot_f, retain_graph=True),
                         iters=3, warmup=1)
         dx_ms = dx_bound = 0.0
-        if want_dx and with_map:
+        if want_dx:
             wt = (w.detach().flip(0) if flip else w.detach()).transpose(1, 2)
             dx_ms = time_cuda(lambda: fused_conv.fused_sparse_conv(cot, t_map, wt))
             # the forward's bound, on the transpose map: dy, map, W read, dx written
@@ -2277,10 +2270,10 @@ def scan_room_batch(cfg, B: int, rng) -> dict:
 
 
 def phase_sortplan(cfg, batch) -> dict:
-    """(a) The ``forward`` phase's in-extent batch: the plan built with
-    ``dense_lookup=false`` and with ``dense_downsample=false`` equals the
-    default plan tensor for tensor (the reference's pin
-    ``test_dense_lookup_matches_sort_path``); each plan's device time.
+    """(a) The ``forward`` phase's in-extent batch: the sort plan
+    (``dense_lookup=false``) equals the default plan tensor for tensor (the
+    reference's pin ``test_dense_lookup_matches_sort_path``); each plan's
+    device time.
     (b) B scan-sized rooms past ``grid_extent``: the dense plan's
     ``extent_misses`` beside the sort plan's (0); the full-width bf16 SIG3D
     forward on the sort plan (finite answers; its kernel launches), against
@@ -2294,15 +2287,12 @@ def phase_sortplan(cfg, batch) -> dict:
     with torch.inference_mode():
         dense = build_unet_plan(coords, mask, sp.capacities, tuple(sp.grid_extent), device=DEV)
         plans_ms = {"dense": _plan_device_ms(coords, mask, sp)}
-        for name, flags in (("sort", dict(dense_lookup=False)),
-                            ("sort_downsample", dict(dense_downsample=False))):
-            plan = build_unet_plan(coords, mask, sp.capacities, tuple(sp.grid_extent),
-                                   device=DEV, **flags)
-            bad = _plans_equal(plan, dense)
-            if bad:
-                fail(f"sortplan in extent: the {name} plan differs from the dense plan "
-                     f"at {bad[:6]}")
-            plans_ms[name] = _plan_device_ms(coords, mask, sp, **flags)
+        plan = build_unet_plan(coords, mask, sp.capacities, tuple(sp.grid_extent),
+                               device=DEV, dense_lookup=False)
+        bad = _plans_equal(plan, dense)
+        if bad:
+            fail(f"sortplan in extent: the sort plan differs from the dense plan at {bad[:6]}")
+        plans_ms["sort"] = _plan_device_ms(coords, mask, sp, dense_lookup=False)
         if int(dense["overflow"]["extent_misses"].sum()) != 0:
             fail("sortplan: the forward phase's batch is not inside the extent")
     del dense, plan

@@ -7,15 +7,17 @@ field names and defaults, so one YAML file or one list of dot-key overrides
 configures both packages; an unknown key or group raises, as it does there.
 
 ``SparseConfig`` keeps the reference's routing fields (``pallas_gather``,
-``fused_conv``, ``conv0_zwin``, ``conv_flat_gather``, ``zwin_level1``, ...)
-so the same configuration loads; they chose between formulations on another
+``fused_conv``, ``conv0_zwin``, ``conv_flat_gather``, ``zwin_level1``,
+``dense_downsample``, ``pallas_map``, ``pallas_map_bits``, ...) so the same
+configuration loads; they chose between formulations on another
 accelerator and the port READS AND IGNORES them. The port keeps one
 formulation per op: every map-driven conv goes through the fused
-gather-GEMM kernel, conv0 runs on its k5 map, and the k3 maps come from the
-two map kernels (``sparse/minkunet.py:build_unet_plan`` says which level
-goes to which, and how ``dense_lookup`` and ``dense_downsample`` choose
-between the dense-grid and the sort-based plan). ``gather_bwd`` is ignored
-too: the gather-only conv backward is the only one the port has.
+gather-GEMM kernel, conv0 runs on its k5 map, the dense plan always takes
+the sort-free downsample, and each level's extent picks its k3 map kernel
+(``sparse/minkunet.py:build_unet_plan``). The one plan switch it reads is
+``dense_lookup``: false builds the sort plan, for scenes past
+``grid_extent``. ``gather_bwd`` is ignored too: the gather-only conv
+backward is the only one the port has.
 """
 from __future__ import annotations
 
@@ -66,14 +68,10 @@ class SparseConfig:
     grid_extent: Tuple[int, ...] = (512, 512, 256)
     # decoder tail + 768-d head (openscene_out)
     final_result: bool = False
-    # k3 maps from the int32-grid kernel / the bit-table kernel; in the port
-    # any true value (True or "force") enables the route, and the tensor's
-    # device decides between the CUDA kernel and its plain version
+    # --- routing fields of the reference: read and ignored by the port ---
     pallas_map: Any = True
     pallas_map_bits: Any = True
-    # sort-free downsample (grid occupancy + cumsum) under dense_lookup
     dense_downsample: bool = True
-    # --- routing fields of the reference: read and ignored by the port ---
     dense_conv_min_stride: int = 0
     pallas_gather: bool = True
     fused_conv: Any = False

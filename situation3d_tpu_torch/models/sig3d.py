@@ -220,12 +220,8 @@ class SIG3D(nn.Module):
         if plan is None:
             with span("sig3d.plan"), torch.no_grad():     # integer bookkeeping
                 plan = build_unet_plan(x.coords, x.mask, cfg.sparse.capacities,
-                                       cfg.sparse.grid_extent,
-                                       pallas_map=cfg.sparse.pallas_map,
-                                       pallas_map_bits=cfg.sparse.pallas_map_bits,
-                                       device=self.device,
-                                       dense_lookup=cfg.sparse.dense_lookup,
-                                       dense_downsample=cfg.sparse.dense_downsample)
+                                       cfg.sparse.grid_extent, device=self.device,
+                                       dense_lookup=cfg.sparse.dense_lookup)
         frozen = not any(p.requires_grad for p in self.scene_encoder.parameters())
         with span("sig3d.encoder"), torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
             enc = self.scene_encoder(x, plan,

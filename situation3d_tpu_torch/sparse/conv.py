@@ -20,8 +20,7 @@ import torch
 from torch import nn
 
 from situation3d_tpu_torch.ops.cuda.fused_conv import fused_sparse_conv
-from situation3d_tpu_torch.ops.cuda.gather_rows import (gather_rows,
-                                                        scatter_add_rows)
+from situation3d_tpu_torch.ops.cuda.gather_rows import gather_rows
 from situation3d_tpu_torch.parallel.collectives import psum_differentiable
 from situation3d_tpu_torch.sparse.tensor import SparseVoxels
 
@@ -49,14 +48,12 @@ def _offset_chunks(K: int, bytes_per_offset: int):
     return [(j, min(j + per, K)) for j in range(0, K, per)]
 
 
-def _weight_grad(rows: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
-                 rows_are_input: bool) -> torch.Tensor:
+def _weight_grad(rows: torch.Tensor, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``sum_{b,u} rows[b,u]^T (x) table[b, idx[b,u,j]]`` for every map
-    column ``j``: float32 ``[K, C_rows, C_table]``, or its transpose per
-    offset when ``rows_are_input`` is false (``[K, C_table, C_rows]``).
-    ``idx`` entries outside the table read a zero row. One ``gather_rows``
-    launch serves a chunk of offsets (voxel-major, so the gathered block is
-    the right operand of ONE product over all (sample, voxel) pairs)."""
+    column ``j``: float32 ``[K, C_rows, C_table]``. ``idx`` entries outside
+    the table read a zero row. One ``gather_rows`` launch serves a chunk of
+    offsets (voxel-major, so the gathered block is the right operand of ONE
+    product over all (sample, voxel) pairs)."""
     if (table.shape[2] * table.element_size()) % 4:
         # an odd number of bf16 channels: gather_rows moves 4-byte words
         rows, table = rows.float(), table.float()
@@ -72,8 +69,7 @@ def _weight_grad(rows: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
         g = gather_rows(padded, safe[:, :, j0:j1].reshape(B, U * nk))
         prod = _matmul_f32(lhs, g.view(B * U, nk * C_t))        # [C_r, nk*C_t]
         out.append(prod.view(C_r, nk, C_t).permute(1, 0, 2))
-    dw = torch.cat(out, dim=0)
-    return dw if rows_are_input else dw.transpose(1, 2)
+    return torch.cat(out, dim=0)
 
 
 class _SparseConvTmap(torch.autograd.Function):
@@ -108,43 +104,11 @@ class _SparseConvTmap(torch.autograd.Function):
             wt = kernel.flip(0) if ctx.flip_kernel else kernel
             dx = fused_sparse_conv(dy, t_map, wt.transpose(1, 2)).to(feats.dtype)
         if ctx.needs_input_grad[3]:
-            dw = _weight_grad(feats, dy, t_map, rows_are_input=True)
+            dw = _weight_grad(feats, dy, t_map)
             if ctx.flip_kernel:
                 dw = dw.flip(0)
             dw = dw.to(kernel.dtype)
         return dx, None, None, dw, None
-
-
-class _SparseConvScatter(torch.autograd.Function):
-    """The fused conv where no transpose map is at hand: the scatter form of
-    the reference's ``_fused_bwd``, deterministic through
-    ``scatter_add_rows``. The UNet never takes this branch."""
-
-    @staticmethod
-    def forward(ctx, feats, nbr_idx, kernel):
-        ctx.save_for_backward(feats, nbr_idx, kernel)
-        return fused_sparse_conv(feats, nbr_idx, kernel).to(feats.dtype)
-
-    @staticmethod
-    def backward(ctx, dy):
-        feats, nbr_idx, kernel = ctx.saved_tensors
-        B, V_in, C_in = feats.shape
-        V_out, K = nbr_idx.shape[1], nbr_idx.shape[2]
-        dy = dy.to(feats.dtype)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            w = kernel.to(dy.dtype)
-            dx = torch.zeros(B, V_in, C_in, dtype=torch.float32, device=dy.device)
-            for j0, j1 in _offset_chunks(K, B * V_out * C_in * 4):
-                part = torch.einsum("bvd,kcd->bvkc", dy, w[j0:j1]).float()
-                dx += scatter_add_rows(
-                    part.reshape(B, V_out * (j1 - j0), C_in),
-                    nbr_idx[:, :, j0:j1].reshape(B, -1).contiguous(), V_in)
-            dx = dx.to(feats.dtype)
-        if ctx.needs_input_grad[2]:
-            dw = _weight_grad(dy, feats, nbr_idx, rows_are_input=False)
-            dw = dw.to(kernel.dtype)
-        return dx, None, dw
 
 
 def sparse_conv_apply(feats: torch.Tensor, nbr_idx: torch.Tensor,
@@ -163,13 +127,15 @@ def sparse_conv_apply(feats: torch.Tensor, nbr_idx: torch.Tensor,
       transpose_map: explicit transpose map [B, V_in, K] for strided convs
         (the k2 down convs pass the level's ``map_up``); same backward, no
         kernel-index flip. Mutually exclusive with ``symmetric_bwd``.
+    One of the two is required: the backward runs on it.
     Returns [B, V_out, C_out] (float32 accumulated, cast back to feats.dtype).
     """
     if transpose_map is not None:
         return _SparseConvTmap.apply(feats, nbr_idx, transpose_map, kernel, False)
     if symmetric_bwd:
         return _SparseConvTmap.apply(feats, nbr_idx, nbr_idx, kernel, True)
-    return _SparseConvScatter.apply(feats, nbr_idx, kernel)
+    raise ValueError("sparse_conv_apply: the backward needs symmetric_bwd=True "
+                     "or a transpose_map; neither was given")
 
 
 def _fan_in_normal_(w: torch.Tensor, fan_in: int) -> None:
@@ -182,7 +148,8 @@ def _fan_in_normal_(w: torch.Tensor, fan_in: int) -> None:
 class SparseConv(nn.Module):
     """Sparse convolution over a precomputed neighbor map (bias-free; BN
     supplies the bias). The direction (down, same, transpose) lives entirely
-    in the map."""
+    in the map; the backward runs on ``symmetric_bwd`` or the call's
+    ``transpose_map``, and a call with neither raises."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
                  dtype: torch.dtype = torch.float32, symmetric_bwd: bool = False):

@@ -1,6 +1,10 @@
 """MinkUNet18A on the sparse engine (port of
-``situation3d_tpu/sparse/minkunet.py``: ``build_unet_plan`` dense path,
-``BasicBlock``, ``ResLayer`` and ``MinkUNet``).
+``situation3d_tpu/sparse/minkunet.py``: ``build_unet_plan``, ``BasicBlock``,
+``ResLayer`` and ``MinkUNet``).
+
+The plan has two routes (``build_unet_plan``): the dense plan over
+``sparse.grid_extent``, and the sort plan (``sparse.dense_lookup=false``) for
+scenes past it.
 
   conv0 (k5, s1) -> [conv k2/s2 -> 2x BasicBlock(k3)] x4 down to stride 16
   (``feat_bottleneck``) -> [transposed conv k2 on map_up -> cat(skip) ->
@@ -55,11 +59,8 @@ def build_unet_plan(
     mask: torch.Tensor,
     capacities: Sequence[int],
     extent: Sequence[int] = (512, 512, 256),
-    pallas_map: Any = True,
-    pallas_map_bits: Any = True,
     device="cuda",
     dense_lookup: bool = True,
-    dense_downsample: bool = True,
 ) -> Dict[str, Any]:
     """Build all coordinate sets and kernel maps for the UNet, batched, on
     ``device``.
@@ -68,27 +69,20 @@ def build_unet_plan(
       coords: int32 [B, V0, 3] stride-1 voxel coords (padded).
       mask:   bool [B, V0].
       capacities: per-stride voxel budgets for strides (1, 2, 4, 8, 16).
-      pallas_map / pallas_map_bits: the reference's switches for its two
-        k3-map kernels; any true value enables the route here.
-      dense_lookup: maps from dense level grids over ``extent`` (voxels
-        outside it get no neighbours and are counted in ``extent_misses``);
-        false: the sort-based maps, which take any coords below
-        ``COORD_BOUND`` per axis (scenes beyond the extent).
-      dense_downsample: with ``dense_lookup``, the sort-free downsample that
-        writes the k2 down and up maps in the same pass; otherwise the
-        downsample sorts and the k2 maps are looked up like the k3 maps.
+      dense_lookup: the dense plan over ``extent`` (voxels outside it get no
+        neighbours and are counted in ``extent_misses``); false: the sort
+        plan, which takes any coords below ``COORD_BOUND`` per axis (scenes
+        beyond the extent).
 
-    Routing of the maps mirrors the reference so both frameworks send the
-    same level to the same kernel. With ``dense_lookup``: level 0's k5 map
-    (the reference's XLA dense lookup, which slices its k3 map out of it) goes
-    through the int32-grid kernel with the 125 k5 offsets, whose one pass also
-    writes the k3 map; a level's k3 map goes to the int32-grid kernel where
-    ``map_lookup_fits`` holds, else to the bit-table kernel where the level
-    was dense-downsampled (``i >= 1``) and ``map_bits_fits`` holds, else to
-    the plain dense lookup. At the default extent: level 1 -> bits (grid
-    lookup without ``dense_downsample``), levels 2-4 -> grid. Without
-    ``dense_lookup`` no map kernel runs. The tensors' device decides kernel
-    vs plain version.
+    The dense plan: each level comes from the sort-free downsample, which
+    writes the k2 down and up maps in the same pass. Level 0's k5 map goes
+    through the int32-grid kernel with the 125 k5 offsets, whose one pass
+    also writes the k3 map. A level's k3 map goes to the int32-grid kernel
+    where ``map_lookup_fits`` holds, else to the bit-table kernel where
+    ``map_bits_fits`` holds, else to the plain dense lookup: the level's
+    extent decides, as it does in the reference. At the default extent:
+    level 1 -> bits, levels 2-4 -> grid. The sort plan runs no map kernel.
+    The tensors' device decides kernel vs plain version.
 
     Returns a dict:
       levels: list over strides of {coords, mask, map_k3}; level 0 also has
@@ -109,7 +103,7 @@ def build_unet_plan(
     levels = [{"coords": coords, "mask": mask}]
     for i in range(1, len(STRIDES)):
         prev = levels[i - 1]
-        if dense_lookup and dense_downsample:
+        if dense_lookup:
             c, m, dropped, dmap, umap = downsample_with_down_map(
                 prev["coords"], prev["mask"], STRIDES[i - 1], 2, capacities[i], extent)
             levels.append({"coords": c, "mask": m, "map_down": dmap})
@@ -139,47 +133,31 @@ def build_unet_plan(
                                                   fine["mask"], -k2, s, STRIDES[i - 1])
         return {"levels": levels, "overflow": overflow}
 
-    prev_grid = None
     for i, lvl in enumerate(levels):
         s = STRIDES[i]
         v_in = lvl["coords"].shape[1]
         cells = tuple(e // s for e in extent)
         n_cells = cells[0] * cells[1] * cells[2]
-        use_grid = i >= 1 and bool(pallas_map) and map_lookup_fits(n_cells, cells[2])
-        use_bits = (i >= 1 and dense_downsample and not use_grid and bool(pallas_map_bits)
-                    and map_bits_fits(n_cells, cells[2]))
-        # a level served by the bit tables needs no grid; it is a
-        # dense-downsampled level, whose voxels all lie inside the extent, so
-        # it adds nothing to extent_misses
-        grid = None
-        if not use_bits:
-            grid, misses = build_level_grid(lvl["coords"], lvl["mask"], s, extent)
-            overflow["extent_misses"] += misses
+        use_grid = i >= 1 and map_lookup_fits(n_cells, cells[2])
+        if i >= 1 and not use_grid and map_bits_fits(n_cells, cells[2]):
+            # a dense-downsampled level: its voxels all lie inside the
+            # extent, so it needs no grid and adds nothing to extent_misses
+            bits, pfx = build_level_bits(lvl["coords"], lvl["mask"], s, extent)
+            lvl["map_k3"] = k3_map_lookup_bits(bits, pfx, lvl["coords"] // s,
+                                               lvl["mask"], cells, v_in)
+            continue
+        grid, misses = build_level_grid(lvl["coords"], lvl["mask"], s, extent)
+        overflow["extent_misses"] += misses
         if i == 0:      # stride 1: the coords are the cells
             lvl["map_k5"], lvl["map_k3"] = k5_map_lookup(grid, lvl["coords"],
                                                          lvl["mask"], cells, v_in)
         elif use_grid:
             lvl["map_k3"] = k3_map_lookup(grid, lvl["coords"] // s, lvl["mask"],
                                           cells, v_in)
-        elif use_bits:
-            bits, pfx = build_level_bits(lvl["coords"], lvl["mask"], s, extent)
-            lvl["map_k3"] = k3_map_lookup_bits(bits, pfx, lvl["coords"] // s,
-                                               lvl["mask"], cells, v_in)
         else:
             lvl["map_k3"] = lookup_kernel_map_dense(grid, v_in, lvl["coords"], lvl["mask"],
                                                     k3, s, s, extent)
-        if i > 0 and "map_down" not in lvl:
-            # the sorted downsample: the k2 maps from the two levels' grids
-            fine, sf = levels[i - 1], STRIDES[i - 1]
-            lvl["map_down"] = lookup_kernel_map_dense(
-                prev_grid, fine["coords"].shape[1], lvl["coords"], lvl["mask"], k2, sf, sf,
-                extent)
-            fine["map_up"] = lookup_kernel_map_dense(
-                grid, v_in, fine["coords"], fine["mask"], -k2, s, sf, extent)
-        # keep this level's grid for the next level's k2 maps only when the
-        # downsample did not write them
-        prev_grid = None if dense_downsample else grid
-        grid = None
+        del grid
     return {"levels": levels, "overflow": overflow}
 
 

@@ -97,18 +97,28 @@ def test_conv_backward_matches_reference_vjp(levels, case):
 
 
 @pytest.mark.parametrize("case", ["k3", "k5", "k2_down", "k2_up"])
-def test_conv_backward_matches_plain_autograd_and_scatter_form(levels, case):
-    """The gather-only backward, the scatter form (no transpose map at hand)
-    and plain autograd through the plain conv agree."""
+def test_conv_backward_matches_plain_autograd(levels, case):
+    """The gather-only backward and plain autograd through the plain conv
+    agree."""
     nbr, tmap, sym, feats, w, cot = _inputs(levels, case, seed=2)
     f = torch.from_numpy(feats).requires_grad_()
     k = torch.from_numpy(w).requires_grad_()
     want = torch.autograd.grad(fused_sparse_conv_plain(f, nbr, k), (f, k),
                                torch.from_numpy(cot))
-    for got in (_port_grads(nbr, tmap, sym, feats, w, cot),
-                _port_grads(nbr, None, False, feats, w, cot)):
-        for g, x in zip(got, want):
-            np.testing.assert_allclose(t2n(g), t2n(x), atol=ATOL, rtol=0)
+    for g, x in zip(_port_grads(nbr, tmap, sym, feats, w, cot), want):
+        np.testing.assert_allclose(t2n(g), t2n(x), atol=ATOL, rtol=0)
+
+
+def test_conv_without_a_backward_map_raises(levels):
+    """A conv given neither ``symmetric_bwd`` nor a ``transpose_map`` has no
+    backward to run: it raises, through the function and the module."""
+    nbr, _, _, feats, w, _ = _inputs(levels, "k2_down", seed=8)
+    with pytest.raises(ValueError, match="symmetric_bwd.*transpose_map"):
+        tconv.sparse_conv_apply(torch.from_numpy(feats), nbr, torch.from_numpy(w))
+    L = levels
+    x = SparseVoxels(L[0]["coords"], torch.from_numpy(feats), L[0]["mask"], 1)
+    with pytest.raises(ValueError, match="symmetric_bwd.*transpose_map"):
+        tconv.SparseConv(5, 7, 8)(x, nbr, L[1]["coords"], L[1]["mask"], 2)
 
 
 @pytest.mark.parametrize("case", ["k3", "k2_down", "k2_up"])

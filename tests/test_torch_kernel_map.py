@@ -1,6 +1,7 @@
 """Plan building of the port against the reference, bit for bit: voxel
 dedup, level grids, dense lookups, the sort-free downsample with its k2
-maps, and the whole ``build_unet_plan`` in both k3-map routings."""
+maps, and the whole ``build_unet_plan`` on each k3-map route its extent
+picks."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,12 +11,14 @@ import torch
 from situation3d_tpu.ops.voxelize import voxelize_jax
 from situation3d_tpu.sparse import kernel_map as jkm
 from situation3d_tpu.sparse.minkunet import build_unet_plan as jax_build_unet_plan
+from situation3d_tpu_torch.config import Config, apply_overrides
+from situation3d_tpu_torch.models import sig3d as tsig
 from situation3d_tpu_torch.ops.voxelize import (pack_coords, unpack_coords,
                                                 voxelize_torch)
 from situation3d_tpu_torch.sparse import kernel_map as tkm
 from situation3d_tpu_torch.sparse.minkunet import build_unet_plan
 
-from torch_port_util import t2n
+from torch_port_util import TINY, t2n
 
 torch.set_num_threads(1)
 
@@ -116,26 +119,60 @@ def test_downsample_with_down_map(capacity, stride):
         assert int(got[2][0]) > 2
 
 
-def _plan_case():
+def _plan_case(span):
     caps = (256, 128, 64, 32, 16)                         # level 1+ overflow
-    coords, mask = _scene(4, 3, caps[0], 200, (100, 110, 60),
+    coords, mask = _scene(4, 3, caps[0], 200, span,
                           extra=[[130, 5, 5], [5, 5, 70]])  # beyond the extent
     mask[2] = False                                       # all-invalid sample
     return caps, coords, mask
 
 
-@pytest.mark.parametrize("routing", [
-    dict(pallas_map="force", pallas_map_bits=False),      # grid kernel, levels 1-4
-    dict(pallas_map=False, pallas_map_bits="force"),      # bits where Z % 32 == 0
-    dict(pallas_map=False, pallas_map_bits=False),        # plain dense lookup
-], ids=["grid", "bits", "dense"])
-def test_build_unet_plan_bit_for_bit(routing):
-    caps, coords, mask = _plan_case()
-    extent = (128, 128, 64)
-    got = build_unet_plan(coords, mask, caps, extent, device="cpu", **routing)
+def _record_routes(monkeypatch):
+    """Patch the plan's map routes to log (route, level cells) through the
+    wrappers; returns the log."""
+    from situation3d_tpu_torch.sparse import minkunet as mu
+    calls = []
+    real = {name: getattr(mu, name) for name in (
+        "k5_map_lookup", "k3_map_lookup", "k3_map_lookup_bits", "lookup_kernel_map_dense")}
+    monkeypatch.setattr(mu, "k5_map_lookup",
+                        lambda *a: calls.append(("k5", a[3])) or real["k5_map_lookup"](*a))
+    monkeypatch.setattr(mu, "k3_map_lookup",
+                        lambda *a: calls.append(("grid", a[3])) or real["k3_map_lookup"](*a))
+    monkeypatch.setattr(mu, "k3_map_lookup_bits",
+                        lambda *a: calls.append(("bits", a[4])) or real["k3_map_lookup_bits"](*a))
+    monkeypatch.setattr(mu, "lookup_kernel_map_dense", lambda *a: calls.append(
+        ("plain", tuple(e // a[5] for e in a[7]))) or real["lookup_kernel_map_dense"](*a))
+    return calls
+
+
+def _routes(extent, level1, rest):
+    """The route log of a plan over ``extent``: k5 at level 0, ``level1`` at
+    level 1 and ``rest`` at levels 2-4."""
+    cells = [tuple(e // s for e in extent) for s in (1, 2, 4, 8, 16)]
+    return [("k5", cells[0]), (level1, cells[1])] + [(rest, c) for c in cells[2:]]
+
+
+# each extent's own cells pick the route (map_lookup_fits, then map_bits_fits);
+# the last entry is the reference's kernel switches. Its maps are one plan
+# whichever kernel builds them; at (64, 64, 512) its interpret-mode kernels
+# would take half a minute, so it builds that plan on its XLA lookup (the
+# port's bit-table lookup is held to the reference's kernel in
+# test_torch_map_kernels.py)
+PLAN_EXTENTS = [((128, 128, 64), (100, 110, 60), "grid", "grid", dict(pallas_map="force")),
+                ((64, 64, 512), (60, 60, 300), "bits", "grid", {}),   # level 1: 256 z-cells
+                ((128, 128, 96), (100, 110, 60), "plain", "plain", {})]
+
+
+@pytest.mark.parametrize("extent,span,level1,rest,reference", PLAN_EXTENTS,
+                         ids=["grid", "bits", "dense"])
+def test_build_unet_plan_bit_for_bit(extent, span, level1, rest, reference, monkeypatch):
+    caps, coords, mask = _plan_case(span)
+    calls = _record_routes(monkeypatch)
+    got = build_unet_plan(coords, mask, caps, extent, device="cpu")
+    assert calls == _routes(extent, level1, rest)
     want = jax.jit(lambda c, m: jax_build_unet_plan(
-        c, m, caps, dense_lookup=True, extent=extent, need_k5=True,
-        dense_downsample=True, **routing))(jnp.asarray(coords), jnp.asarray(mask))
+        c, m, caps, dense_lookup=True, extent=extent, need_k5=True, dense_downsample=True,
+        **reference))(jnp.asarray(coords), jnp.asarray(mask))
     assert len(got["levels"]) == 5
     for i, (gl, wl) in enumerate(zip(got["levels"], want["levels"])):
         assert set(gl) == set(wl), (i, set(gl), set(wl))
@@ -144,7 +181,44 @@ def test_build_unet_plan_bit_for_bit(routing):
     for key in want["overflow"]:
         _eq(got["overflow"][key], want["overflow"][key], key)
     assert int(got["overflow"]["voxels_dropped"].sum()) > 0
-    assert int(got["overflow"]["extent_misses"][0]) == 2
+    # the voxels of sample 0 outside the extent, all counted at level 0
+    outside = int((mask[0] & ((coords[0] < 0) | (coords[0] >= extent)).any(1)).sum())
+    assert outside >= 1 and int(got["overflow"]["extent_misses"][0]) == outside
+
+
+@pytest.mark.parametrize("option", ["sparse.pallas_map=false", "sparse.pallas_map_bits=false",
+                                    "sparse.dense_downsample=false"])
+def test_retired_plan_fields_change_no_plan(option, monkeypatch):
+    """The reference's switches for its downsample and its two map kernels
+    are read and ignored: SIG3D builds the default plan with each at its
+    non-default value, bit for bit and through the same routes, on a scene
+    partly past the extent (where a sorted downsample gives another plan)."""
+    extent = (64, 64, 512)
+    cfg = apply_overrides(Config(), [*TINY, "sparse.grid_extent=(64,64,512)", option])
+    caps = cfg.sparse.capacities
+    coords, mask = _scene(7, 2, caps[0], 300, (80, 60, 300))   # x past 64
+    want_calls = _routes(extent, "bits", "grid")
+    calls = _record_routes(monkeypatch)
+    want = build_unet_plan(coords, mask, caps, extent, device="cpu")
+    assert calls == want_calls and int(want["overflow"]["extent_misses"][0]) > 0
+    del calls[:]
+    plans = []
+    real = tsig.build_unet_plan
+    monkeypatch.setattr(tsig, "build_unet_plan",
+                        lambda *a, **kw: plans.append(real(*a, **kw)) or plans[-1])
+    model = tsig.SIG3D(cfg, 5, device="cpu")
+    feats = np.random.RandomState(8).rand(*coords.shape).astype(np.float32) * mask[..., None]
+    with torch.no_grad():
+        model.encode_scene({"voxel_coords": coords, "voxel_feats": feats, "voxel_mask": mask},
+                           generator=torch.Generator().manual_seed(0))
+    assert calls == want_calls and len(plans) == 1
+    got = plans[0]
+    for i, (gl, wl) in enumerate(zip(got["levels"], want["levels"])):
+        assert set(gl) == set(wl), (i, set(gl), set(wl))
+        for key, val in wl.items():
+            assert torch.equal(gl[key], val), (option, i, key)
+    for key, val in want["overflow"].items():
+        assert torch.equal(got["overflow"][key], val), key
 
 
 def test_build_unet_plan_routes_like_the_reference(monkeypatch):
@@ -153,20 +227,12 @@ def test_build_unet_plan_routes_like_the_reference(monkeypatch):
     and levels 2-4 to the int32-grid kernel (counted through the
     wrappers)."""
     from situation3d_tpu_torch.sparse import minkunet as mu
-    calls = []
-    real_grid, real_bits, real_k5 = mu.k3_map_lookup, mu.k3_map_lookup_bits, mu.k5_map_lookup
-    monkeypatch.setattr(mu, "k3_map_lookup",
-                        lambda *a: calls.append(("grid", a[3])) or real_grid(*a))
-    monkeypatch.setattr(mu, "k3_map_lookup_bits",
-                        lambda *a: calls.append(("bits", a[4])) or real_bits(*a))
-    monkeypatch.setattr(mu, "k5_map_lookup",
-                        lambda *a: calls.append(("k5", a[3])) or real_k5(*a))
+    calls = _record_routes(monkeypatch)
     caps = (64, 32, 16, 8, 4)
     coords, mask = _scene(5, 1, caps[0], 50, (300, 300, 150))
     # level 0 of the default extent is a 268 MB grid per sample: B = 1 only
     plan = mu.build_unet_plan(coords, mask, caps, (512, 512, 256), device="cpu")
-    assert calls == [("k5", (512, 512, 256)), ("bits", (256, 256, 128)),
-                     ("grid", (128, 128, 64)), ("grid", (64, 64, 32)), ("grid", (32, 32, 16))]
+    assert calls == _routes((512, 512, 256), "bits", "grid")
     level0 = plan["levels"][0]
     assert level0["map_k5"].shape == (1, caps[0], 125)
     assert torch.equal(level0["map_k3"], level0["map_k5"][:, :, [

@@ -65,8 +65,7 @@ def _run(extra, seed, B, n_vox):
     unused = load_jax_variables(net, to_numpy_tree(v["params"]),
                                 to_numpy_tree(v["batch_stats"]))
     plan = build_unet_plan(b["voxel_coords"], b["voxel_mask"], ts.capacities,
-                           ts.grid_extent, pallas_map=ts.pallas_map,
-                           pallas_map_bits=ts.pallas_map_bits, device="cpu")
+                           ts.grid_extent, device="cpu")
     x = SparseVoxels(torch.from_numpy(b["voxel_coords"]),
                      torch.from_numpy(b["voxel_feats"]),
                      torch.from_numpy(b["voxel_mask"]), 1)
@@ -129,8 +128,8 @@ def test_minkunet_bottleneck_only_stops_at_the_bottleneck():
 
 
 def test_minkunet_refuses_unported_options():
-    """Nothing is refused any more: the sort-based plan options build the
-    UNet, and in extent its outputs on their plans equal the dense plan's."""
+    """Nothing is refused any more: the sort plan option builds the UNet,
+    and in extent its outputs on its plan equal the dense plan's."""
     _, tcfg = tiny_cfgs()
     ts = tcfg.sparse
     b = scene_batch(np.random.RandomState(4), tcfg, 2, n_vox=200)
@@ -141,13 +140,11 @@ def test_minkunet_refuses_unported_options():
     with torch.no_grad():
         dense = net(x, build_unet_plan(x.coords, x.mask, ts.capacities, ts.grid_extent,
                                        device="cpu"))
-        for option in ("sparse.dense_lookup=false", "sparse.dense_downsample=false"):
-            _, ocfg = tiny_cfgs((option,))
-            os_ = ocfg.sparse
-            other = MinkUNet(os_).eval()
-            other.load_state_dict(net.state_dict())
-            plan = build_unet_plan(x.coords, x.mask, os_.capacities, os_.grid_extent,
-                                   device="cpu", dense_lookup=os_.dense_lookup,
-                                   dense_downsample=os_.dense_downsample)
-            for k, v in other(x, plan).items():
-                assert torch.equal(v.feats, dense[k].feats), (option, k)
+        _, ocfg = tiny_cfgs(("sparse.dense_lookup=false",))
+        os_ = ocfg.sparse
+        other = MinkUNet(os_).eval()
+        other.load_state_dict(net.state_dict())
+        plan = build_unet_plan(x.coords, x.mask, os_.capacities, os_.grid_extent,
+                               device="cpu", dense_lookup=os_.dense_lookup)
+        for k, v in other(x, plan).items():
+            assert torch.equal(v.feats, dense[k].feats), k

@@ -1,12 +1,10 @@
 """The sort-based plan of the port (``sparse/kernel_map.py``:
 ``build_kernel_map``, ``downsample_coords``, ``gather_neighbors``; and
-``build_unet_plan`` with ``dense_lookup=false`` or ``dense_downsample=false``)
-against the reference, bit for bit, overflow counters included; on in-extent
-scenes equal to the port's dense plan (the reference's pin
+``build_unet_plan`` with ``dense_lookup=false``) against the reference,
+bit for bit, overflow counters included; on in-extent scenes equal to the
+port's dense plan (the reference's pin
 ``test_dense_lookup_matches_sort_path``); a tiny MinkUNet forward on it
 within 1e-5 of the reference's on its own sort plan."""
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,33 +109,15 @@ def _plan_case():
     return caps, coords, mask
 
 
-PLANS = [dict(dense_lookup=False, dense_downsample=True),
-         dict(dense_lookup=False, dense_downsample=False),
-         dict(dense_lookup=True, dense_downsample=False, pallas_map=True,
-              pallas_map_bits=True),
-         dict(dense_lookup=True, dense_downsample=False, pallas_map=False,
-              pallas_map_bits=False)]
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_plan(dense_lookup, dense_downsample):
-    """The reference's plan of ``_plan_case`` (one compile a distinct plan:
-    without ``dense_lookup`` it ignores ``dense_downsample``, and on the CPU
-    its map-kernel switches)."""
-    caps, coords, mask = _plan_case()
-    return jax.jit(lambda c, m: jax_build_unet_plan(
-        c, m, caps, dense_lookup=dense_lookup, extent=(128, 128, 64), need_k5=True,
-        dense_downsample=dense_downsample))(jnp.asarray(coords), jnp.asarray(mask))
-
-
-@pytest.mark.parametrize("flags", PLANS, ids=["sort", "sort_nodd", "grid_sortdown",
-                                               "dense_sortdown"])
+@pytest.mark.parametrize("flags", [dict(dense_lookup=False)], ids=["sort"])
 def test_build_unet_plan_bit_for_bit(flags):
     caps, coords, mask = _plan_case()
     extent = (128, 128, 64)
     map_lookup.launches = map_lookup.k5_launches = map_bits.launches = 0
     got = build_unet_plan(coords, mask, caps, extent, device="cpu", **flags)
-    want = _jax_plan(flags["dense_lookup"], flags["dense_lookup"] and flags["dense_downsample"])
+    want = jax.jit(lambda c, m: jax_build_unet_plan(
+        c, m, caps, dense_lookup=False, extent=extent, need_k5=True))(
+        jnp.asarray(coords), jnp.asarray(mask))
     for i, (gl, wl) in enumerate(zip(got["levels"], want["levels"])):
         assert set(gl) == set(wl), (i, set(gl), set(wl))
         for key in wl:
@@ -145,15 +125,14 @@ def test_build_unet_plan_bit_for_bit(flags):
     for key in want["overflow"]:
         _eq(got["overflow"][key], want["overflow"][key], key)
     assert int(got["overflow"]["voxels_dropped"].sum()) > 0
-    misses = int(got["overflow"]["extent_misses"][0])
-    assert (misses > 0) == flags["dense_lookup"], misses
+    assert int(got["overflow"]["extent_misses"].sum()) == 0
     assert map_lookup.launches == map_lookup.k5_launches == map_bits.launches == 0
 
 
-def test_sort_plan_routes_no_map_kernel_and_level1_like_the_reference(monkeypatch):
-    """``dense_lookup=false`` calls no map kernel; ``dense_downsample=false``
-    sends level 1 to the grid kernel where it fits, never to the bit tables
-    (the reference requires the dense downsample for them)."""
+def test_sort_plan_routes_no_map_kernel(monkeypatch):
+    """``dense_lookup=false`` calls no map kernel; the dense plan at the
+    same extent calls the k5 kernel and the int32-grid kernel at levels
+    1-4."""
     from situation3d_tpu_torch.sparse import minkunet as mu
     calls = []
     for name in ("k3_map_lookup", "k3_map_lookup_bits", "k5_map_lookup"):
@@ -162,25 +141,23 @@ def test_sort_plan_routes_no_map_kernel_and_level1_like_the_reference(monkeypatc
     caps, coords, mask = _plan_case()
     mu.build_unet_plan(coords, mask, caps, (128, 128, 64), device="cpu", dense_lookup=False)
     assert calls == []
-    mu.build_unet_plan(coords, mask, caps, (128, 128, 64), device="cpu",
-                       dense_downsample=False)
+    mu.build_unet_plan(coords, mask, caps, (128, 128, 64), device="cpu")
     assert calls == ["k5_map_lookup"] + ["k3_map_lookup"] * 4
 
 
 def test_sort_plan_equals_dense_plan_in_extent():
-    """In extent the three plans hold the same tensors (the reference pins
+    """In extent the two plans hold the same tensors (the reference pins
     its dense plan to its sort plan the same way)."""
     caps = (256, 256, 128, 64, 32)
     coords, mask = _scene(5, 2, caps[0], 200, (28, 28, 28))
     dense = build_unet_plan(coords, mask, caps, (64, 64, 64), device="cpu")
-    for flags in (dict(dense_lookup=False), dict(dense_downsample=False)):
-        other = build_unet_plan(coords, mask, caps, (64, 64, 64), device="cpu", **flags)
-        for i in range(5):
-            assert set(other["levels"][i]) == set(dense["levels"][i])
-            for key, val in dense["levels"][i].items():
-                assert torch.equal(other["levels"][i][key], val), (flags, i, key)
-        for key, val in dense["overflow"].items():
-            assert torch.equal(other["overflow"][key], val), key
+    sort = build_unet_plan(coords, mask, caps, (64, 64, 64), device="cpu", dense_lookup=False)
+    for i in range(5):
+        assert set(sort["levels"][i]) == set(dense["levels"][i])
+        for key, val in dense["levels"][i].items():
+            assert torch.equal(sort["levels"][i][key], val), (i, key)
+    for key, val in dense["overflow"].items():
+        assert torch.equal(sort["overflow"][key], val), key
 
 
 def test_minkunet_forward_on_the_sort_plan():

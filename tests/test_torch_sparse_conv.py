@@ -64,8 +64,8 @@ def test_fused_conv_bf16_inputs_accumulate_in_f32():
     want = tfc.fused_sparse_conv_plain(
         f16.float(), torch.from_numpy(idx), torch.from_numpy(w).bfloat16().float())
     np.testing.assert_allclose(t2n(got), t2n(want), atol=ATOL, rtol=0)
-    assert tconv.sparse_conv_apply(f16, torch.from_numpy(idx),
-                                   torch.from_numpy(w)).dtype == torch.bfloat16
+    assert tconv.sparse_conv_apply(f16, torch.from_numpy(idx), torch.from_numpy(w),
+                                   symmetric_bwd=True).dtype == torch.bfloat16
 
 
 def test_fused_conv_wrapper_checks_its_arguments():
@@ -92,7 +92,7 @@ def test_sparse_conv_module_matches_reference():
     coords, feats, mask = _voxels(r)
     idx = r.randint(0, 65, (2, 64, 27)).astype(np.int32)
     w = (r.randn(27, 8, 12) / 15).astype(np.float32)
-    mod = tconv.SparseConv(8, 12, 27)
+    mod = tconv.SparseConv(8, 12, 27, symmetric_bwd=True)
     assert tuple(mod.kernel.shape) == (27, 8, 12)
     with torch.no_grad():
         mod.kernel.copy_(torch.from_numpy(w))
