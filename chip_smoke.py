@@ -136,6 +136,7 @@ from situation3d_tpu_torch.models.vit import init_vision_encoder
 from situation3d_tpu_torch.models.votenet import VoteNet
 from situation3d_tpu_torch.models import blip2_lfm2 as lfm2_mod
 from situation3d_tpu_torch.models import sig3d as sig3d_mod
+from situation3d_tpu_torch.models import layers as layers_mod
 from situation3d_tpu_torch.models import t5 as t5_mod
 from situation3d_tpu_torch.models.lfm2 import LFM2Config
 from situation3d_tpu_torch.ops import native, pointnet2
@@ -2753,16 +2754,50 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def _per_step_projection(t5, enc, emask, tok, cache):
+    """A decode step as the port ran it before the cross-attention's keys and
+    values were kept: each layer projects them from ``enc`` at every step."""
+    x = t5.shared(tok).to(t5.dtype)
+    bias = None
+    for i in range(t5.cfg.num_decoder_layers):
+        blk = getattr(t5.decoder, f"block{i}")
+        a, bias = blk.self_attn(blk.self_attn_norm(x), position_bias=bias,
+                                cache=cache.layers[i], cache_index=cache.index)
+        x = x + a
+        c, _ = blk.cross_attn(blk.cross_attn_norm(x), kv=enc, mask=emask)
+        x = blk.ff(x + c)
+    cache.index += x.shape[1]
+    return t5._logits(t5.decoder.final_norm(x))
+
+
+def _eager_decode(t5, enc, emask, start, eos, pad):
+    """The greedy steps run eagerly on fresh buffers: (buffers, each step's
+    float32 logits), stopping as the loop does."""
+    b = t5_mod.GreedyBuffers(t5, enc, emask, B2_GEN)
+    b.load(enc, emask, start, pad)
+    logits = []
+    for i in range(B2_GEN):
+        logits.append(t5_mod.greedy_step(t5, b, i, eos, pad, i + 1 < B2_GEN).float())
+        if i + 1 < B2_GEN and bool(b.finished):
+            break
+    return b, logits
+
+
 def blip2_captured_decode(model, bcfg) -> dict:
     """The captured greedy decode against the eager steps on fresh buffers,
     at the ``blip2_flant5xl.answer`` cell's size (B=8, 32 + 400 encoder
     positions, 10 tokens) over ``B2_CHECK_BATCHES`` batches: the tokens
     equal, the widest logit gap of the steps run, ``GEN`` captures at the
-    first batch and one replay a step run, and one eager and one replayed
-    step timed with CUDA events."""
+    first batch and one replay a step run; a decode's ``weight_copies``
+    (none once made) and ``cross_kv_projections`` (one a batch, two at the
+    capture); each step's logits against the step that projects the
+    encoder's keys and values anew (:func:`_per_step_projection`), and every
+    weight copy against the per-call cast, bit for bit. Then one decoder
+    weight updated in place: the replayed decode follows it without a
+    capture. One eager and one replayed step timed with CUDA events."""
     t5, t5c = model.t5, bcfg.t5
     start, eos, pad = t5c.decoder_start_token_id, t5c.eos_token_id, t5c.pad_token_id
-    rows, gap, scale = [], 0.0, 0.0
+    rows, gap, scale, parent_gap, parent_eager_gap = [], 0.0, 0.0, 0.0, 0.0
     with torch.no_grad():
         for k in range(B2_CHECK_BATCHES):
             batch = tree_to_device(blip2_bench_batch(
@@ -2770,37 +2805,73 @@ def blip2_captured_decode(model, bcfg) -> dict:
                 labels=False), DEV)
             emb, emask = model.prepare(batch)
             c0, r0 = t5_mod.decode_graph_captures, t5_mod.decode_graph_replays
+            w0, x0 = layers_mod.weight_copies, t5_mod.cross_kv_projections
             tokens = t5_mod.greedy_decode(t5, emb, emask, B2_GEN, start, eos, pad)
             captures = t5_mod.decode_graph_captures - c0
             replays = t5_mod.decode_graph_replays - r0
+            copies = layers_mod.weight_copies - w0
+            projections = t5_mod.cross_kv_projections - x0
             enc = t5.encode(emb, emask)
             cap = t5.decode_graphs.get(t5, enc, emask, B2_GEN, start, eos, pad)
-            b = t5_mod.GreedyBuffers(t5, enc, emask, B2_GEN)
-            b.load(enc, emask, start, pad)
-            eager = []
-            for i in range(B2_GEN):
-                eager.append(t5_mod.greedy_step(t5, b, i, eos, pad, i + 1 < B2_GEN).float())
-                if i + 1 < B2_GEN and bool(b.finished):
-                    break
+            b, eager = _eager_decode(t5, enc, emask, start, eos, pad)
             steps = len(eager)
+            cache = t5.init_cache(B2_DECODE_BATCH)
             for i in range(steps):
+                tok = b.out[:, i - 1:i] if i else torch.full_like(b.tok, start)
+                parent = _per_step_projection(t5, enc, emask, tok, cache).float()
                 gap = max(gap, float((cap.logits[i].float() - eager[i]).abs().max()))
+                parent_gap = max(parent_gap, float((cap.logits[i].float() - parent).abs().max()))
+                parent_eager_gap = max(parent_eager_gap, float((eager[i] - parent).abs().max()))
                 scale = max(scale, float(eager[i].abs().max()))
             same = torch.equal(tokens, b.out)
             rows.append({"captures": captures, "replays": replays, "steps": steps,
-                         "tokens_equal": same})
-            if not same or replays != steps or captures != (B2_GEN if k == 0 else 0):
+                         "tokens_equal": same, "weight_copies": copies,
+                         "cross_kv_projections": projections})
+            # the first batch captures: the capture's own load projects once more,
+            # and the weights trained above get their copies
+            if (not same or replays != steps or captures != (B2_GEN if k == 0 else 0)
+                    or projections != (2 if k == 0 else 1) or (k > 0 and copies != 0)):
                 fail(f"blip2 captured decode, batch {k}: {rows[-1]}; captured "
                      f"{tokens.tolist()}, eager {b.out.tolist()}")
+        if parent_gap or parent_eager_gap:
+            fail(f"blip2 decode: logits {parent_gap} (replayed) and {parent_eager_gap} (eager) "
+                 "from those of the step projecting the keys and values anew")
+        copied = [d for d in t5.modules() if isinstance(d, layers_mod.Dense)
+                  and d.compute_copy.weight is not None]
+        unequal = [d for d in copied if not torch.equal(d.compute_copy.weight,
+                                                        d.weight.to(d.dtype))]
+        if not copied or unequal:
+            fail(f"blip2 weight copies: {len(copied)} made, {len(unequal)} unequal to the cast")
+        # one decoder weight updated in place between two decodes: the
+        # replayed steps read its refreshed copy, with no capture
+        before = cap.logits[0].float().clone()
+        w = getattr(t5.decoder, f"block{t5c.num_decoder_layers - 1}").ff.wo.weight
+        w.mul_(4.0)
+        c0, w0 = t5_mod.decode_graph_captures, layers_mod.weight_copies
+        tokens = t5_mod.greedy_decode(t5, emb, emask, B2_GEN, start, eos, pad)
+        after_captures = t5_mod.decode_graph_captures - c0
+        after_copies = layers_mod.weight_copies - w0
+        b, eager = _eager_decode(t5, enc, emask, start, eos, pad)
+        update_gap = float((cap.logits[0].float() - eager[0]).abs().max())
+        moved = float((cap.logits[0].float() - before).abs().max())
+        update = {"tokens_equal": torch.equal(tokens, b.out), "captures": after_captures,
+                  "weight_copies": after_copies, "logit_gap": update_gap,
+                  "logits_moved": moved}
+        if not update["tokens_equal"] or after_captures or after_copies != 1 or moved == 0:
+            fail(f"blip2 decode after an in-place weight update: {update}")
+        w.div_(4.0)
         # one step each way, the buffers of the last batch
         eager_ms = time_cuda(lambda: t5_mod.greedy_step(t5, b, 0, eos, pad, True), iters=10)
         replay_ms = time_cuda(lambda: cap.graphs[0].replay(), iters=10)
     rec = {"batch_size": B2_DECODE_BATCH, "encoder_positions": int(emask.shape[1]),
            "max_len": B2_GEN, "batches": rows, "widest_logit_gap": gap,
+           "per_step_projection_logit_gap": {"replayed": parent_gap,
+                                             "eager": parent_eager_gap},
+           "weight_copies_checked": len(copied), "after_in_place_update": update,
            "largest_logit": round(scale, 3), "eager_step_ms": round(eager_ms, 3),
            "replayed_step_ms": round(replay_ms, 3)}
     emit("blip2_captured_decode", **rec)
-    del cap, b, eager, enc, emb
+    del cap, b, eager, enc, emb, cache
     t5.decode_graphs.keys.clear()
     return rec
 

@@ -19,7 +19,6 @@ buffers. On the CPU or with grad on the same step function runs eagerly.
 """
 from __future__ import annotations
 
-import itertools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -156,10 +155,9 @@ class DecodeGraphs(GraphCache):
         (``step_graphs.eager``) or there is no step (a single token)."""
         if eager(device) or max_len < 2:
             return None
-        storage = tuple(t.data_ptr() for t in itertools.chain(lm.parameters(), lm.buffers()))
         key = (batch, prefix_slots, max_len, eos_id, pad_id, device,
                torch.is_inference_mode_enabled())
-        return self.lookup(key, storage, lambda: CapturedDecode(
+        return self.lookup(key, (lm,), lambda: CapturedDecode(
             lm, batch, prefix_slots, max_len, eos_id, pad_id, device))
 
 

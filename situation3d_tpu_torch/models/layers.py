@@ -1,12 +1,14 @@
 """Dense / embedding / layer-norm / batch-norm layers with float32 parameters
 and a separate compute dtype, the convention of the reference's layers: inputs
 and parameters are cast to ``dtype`` for the product, normalization statistics
-are taken in float32. ``dropout`` draws its mask from an explicit
-``torch.Generator`` (``F.dropout`` takes none)."""
+are taken in float32. A :class:`Dense` that no gradient reaches reads its
+weight from a copy in ``dtype`` made once, not cast at every call.
+``dropout`` draws its mask from an explicit ``torch.Generator`` (``F.dropout``
+takes none)."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,15 +18,91 @@ from situation3d_tpu_torch.device import resolve_device
 from situation3d_tpu_torch.parallel.mesh import draw
 
 
+weight_copies = 0   # +1 per compute-dtype copy of a Dense's weight made or refreshed
+
+
+class ComputeCopy:
+    """A :class:`Dense`'s weight and bias in its compute dtype, and the key
+    of the masters it was taken from: their storage and version counters.
+    Not the module's state: a copy or a pickle of the module holds an empty
+    one."""
+
+    def __init__(self):
+        self.key, self.weight, self.bias = None, None, None
+
+    def __reduce__(self):
+        return type(self), ()
+
+
+def _refreshed(copy: Optional[torch.Tensor], master: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``master`` in ``dtype``: the master itself where it is held in
+    ``dtype``, written into ``copy`` where that has the master's shape and
+    device (its address kept), else a new tensor."""
+    if master.dtype == dtype:
+        return master
+    if (copy is not None and copy.shape == master.shape and copy.dtype == dtype
+            and copy.device == master.device):
+        return copy.copy_(master)
+    return master.to(dtype)
+
+
 class Dense(nn.Linear):
+    """``F.linear`` in ``dtype`` on parameters of their own dtype. Where no
+    gradient reaches the weight (grad mode off, or the weight frozen) and it
+    is not held in ``dtype``, the product reads a copy in ``dtype`` kept on
+    the module (:meth:`compute_operands`): the values of the per-call cast,
+    made once and refreshed in place when the master changes. Otherwise the
+    weight and bias are cast at every call."""
+
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.dtype = dtype
+        self.compute_copy = ComputeCopy()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        operands = self.compute_operands() if self.reads_copy() else None
+        if operands is None:
+            operands = (self.weight.to(self.dtype),
+                        None if self.bias is None else self.bias.to(self.dtype))
+        return F.linear(x.to(self.dtype), *operands)
+
+    def reads_copy(self) -> bool:
+        """Whether this call reads the compute-dtype copy: the weight is held
+        in another dtype and no gradient reaches it. An inference tensor
+        counts no versions, so its changes cannot be seen: it is cast."""
+        w = self.weight
+        return (w.dtype != self.dtype and not (w.requires_grad and torch.is_grad_enabled())
+                and not w.is_inference())
+
+    def compute_operands(self) -> Optional[tuple]:
+        """The weight and bias from the copy, made or refreshed first where
+        a master's storage or version moved since; None while a stream
+        captures and the copy is stale (the cast is captured instead). The
+        copy is made outside inference mode, so that a later forward with
+        grad on may save it for its backward."""
+        global weight_copies
+        c, w, b = self.compute_copy, self.weight, self.bias
+        key = (w.data_ptr(), w._version) + (() if b is None else (b.data_ptr(), b._version))
+        if c.key != key:
+            if w.is_cuda and torch.cuda.is_current_stream_capturing():
+                return None
+            with torch.no_grad(), torch.inference_mode(False):
+                c.weight = _refreshed(c.weight, w, self.dtype)
+                c.bias = None if b is None else _refreshed(c.bias, b, self.dtype)
+            c.key = key
+            weight_copies += 1
+        return c.weight, c.bias
+
+
+def refresh_copies(layers: Iterable[Dense]) -> None:
+    """Make or refresh every copy that ``layers`` read now, outside any
+    capture: a replayed graph reads the copies through their addresses, and
+    no Python runs inside it to see a master change."""
+    for d in layers:
+        if d.reads_copy():
+            d.compute_operands()
 
 
 class Embed(nn.Embedding):

@@ -23,7 +23,6 @@ outputs equal the eager forward's. The GloVe + LSTM encoder stays eager.
 """
 from __future__ import annotations
 
-import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -36,7 +35,7 @@ from situation3d_tpu_torch.models.lang import GloveLSTMEncoder, LangModule
 from situation3d_tpu_torch.models.layers import (Dense, dropout,  # noqa: F401
                                                   init_random_weights)
 from situation3d_tpu_torch.models.mcan import SA, SGA, AttFlat
-from situation3d_tpu_torch.models.step_graphs import GraphCache, capture_steps, eager
+from situation3d_tpu_torch.models.step_graphs import GraphCache, capture_steps, eager, storage
 from situation3d_tpu_torch.ops.cuda.gather_rows import (GatherRows,
                                                         ScatterAddRows,
                                                         scatter_add_rows,
@@ -443,12 +442,16 @@ def static_inputs(q: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for k, v in q.items()}
 
 
+def question_modules(model: SIG3D) -> list:
+    """The modules the question side reads: every one but the scene
+    encoder."""
+    return [m for name, m in model.named_children() if name != "scene_encoder"]
+
+
 def question_storage(model: SIG3D) -> tuple:
-    """Where the question side's parameters and buffers live, every module
-    but the scene encoder: the captured graphs read them through these
-    addresses."""
-    return tuple(t.data_ptr() for name, m in model.named_children() if name != "scene_encoder"
-                 for t in itertools.chain(m.parameters(), m.buffers()))
+    """Where the question side's parameters and buffers live: the captured
+    graphs read them through these addresses."""
+    return storage(question_modules(model))
 
 
 class CapturedQuestion:
@@ -483,5 +486,5 @@ class QuestionGraphs(GraphCache):
         """The capture of this call's key, made at the key's first call."""
         key = (tuple((k, tuple(v.shape), v.dtype) for k, v in q.items()),
                torch.is_inference_mode_enabled(), model.device)
-        return self.lookup(key, question_storage(model),
+        return self.lookup(key, question_modules(model),
                            lambda: CapturedQuestion(model, q, batch))

@@ -9,7 +9,10 @@ side stream, after a few eager steps there (cuBLAS and the allocator warm up
 off the graph); later calls replay. A model keeps its ``GRAPH_KEYS`` most
 recent keys and drops them all when the storage its steps read moved (a
 graph reads its tensors through their addresses); a copy of the model keeps
-none. Steps run eagerly on the CPU, with grad on, or while a stream captures.
+none. Before each capture or replay the compute-dtype copies of the
+weights the steps read are made or refreshed in place
+(``layers.refresh_copies``), since no Python runs inside a replay. Steps
+run eagerly on the CPU, with grad on, or while a stream captures.
 
 A model gives the loop its step, ``step(i, check)``: its decode step, then
 :meth:`GreedyTokens.emit` of token ``i``. Between steps one flag is read
@@ -17,11 +20,14 @@ from the device, to stop once every row has ended.
 """
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict
-from typing import Callable, Hashable, List, Optional, Tuple
+from typing import Callable, Hashable, List, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
+from situation3d_tpu_torch.models.layers import Dense, refresh_copies
 from situation3d_tpu_torch.utils.trace import span
 
 GRAPH_KEYS = 4      # the keys a model keeps captured, the most recent
@@ -103,22 +109,36 @@ def capture_steps(step: Callable[[int, bool], torch.Tensor], steps: range, devic
     return graphs, outputs
 
 
+def storage(modules: Sequence[nn.Module]) -> tuple:
+    """Where ``modules``' parameters and buffers live: the captured steps
+    read them through these addresses."""
+    return tuple(t.data_ptr() for m in modules
+                 for t in itertools.chain(m.parameters(), m.buffers()))
+
+
 class GraphCache:
     """A model's captures by key, the ``GRAPH_KEYS`` most recent; all
-    dropped when the storage fingerprint changes."""
+    dropped when the :func:`storage` of the modules the steps read changes.
+    ``copied``: those modules' :class:`Dense` layers held in another dtype
+    than they compute in, whose copies each lookup refreshes."""
 
     def __init__(self):
-        self.storage, self.keys = None, OrderedDict()
+        self.storage, self.keys, self.copied = None, OrderedDict(), []
 
     def __deepcopy__(self, memo):
         return type(self)()
 
-    def lookup(self, key: Hashable, storage: tuple, make: Callable[[], object]
+    def lookup(self, key: Hashable, modules: Sequence[nn.Module], make: Callable[[], object]
                ) -> Optional[object]:
-        """The capture of ``key``, made by ``make()`` at its first call."""
-        if storage != self.storage:
+        """The capture of ``key``, made by ``make()`` at its first call,
+        after the copies of ``modules``' weights are brought up to date."""
+        fingerprint = storage(modules)
+        if fingerprint != self.storage:
             self.keys.clear()
-            self.storage = storage
+            self.storage = fingerprint
+            self.copied = [d for m in modules for d in m.modules()
+                           if isinstance(d, Dense) and d.weight.dtype != d.dtype]
+        refresh_copies(self.copied)
         if key in self.keys:
             self.keys.move_to_end(key)
             return self.keys[key]

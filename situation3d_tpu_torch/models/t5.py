@@ -12,19 +12,24 @@ arithmetic the reference runs, so decoded tokens agree with it.
 Decoding keeps a self-attention cache of ``max_answer_len`` slots a layer
 (:class:`DecodeCache`): a step writes its keys at ``index``, attends over all
 slots with the later ones masked, and takes row ``index`` of the bias over
-``max_answer_len`` keys. ``greedy_decode``, ``beam_search_decode`` and
-``sample_decode`` are Python loops over ``decode_step``; each reads one flag
-from the device a step to stop when every row is done. ``sample_decode``
-takes its Gumbel noise as an input (or draws it from a generator).
+``max_answer_len`` keys. The cache also holds every layer's cross-attention
+keys and values over the encoder output, projected once at the first step
+(the same product over ``[B, L_enc, d_model]`` that each step ran before),
+and the encoder mask's boolean form. ``greedy_decode``,
+``beam_search_decode`` and ``sample_decode`` are Python loops over
+``decode_step``; each reads one flag from the device a step to stop when
+every row is done. ``sample_decode`` takes its Gumbel noise as an input (or
+draws it from a generator).
 
 On a CUDA device with grad off, ``greedy_decode`` captures each of its steps
-once per shape as a CUDA graph over static buffers (:class:`GreedyBuffers`)
-and replays it; the flag is still read between steps. The eager loop runs
-the same step function on the same buffers, so both emit the same tokens.
+once per shape as a CUDA graph over static buffers (:class:`GreedyBuffers`,
+the cross-attention's keys and values among them, projected once a batch
+before the replays) and replays it; the flag is still read between steps.
+The eager loop runs the same step function on the same buffers, so both
+emit the same tokens.
 """
 from __future__ import annotations
 
-import itertools
 from typing import List, Optional, Tuple
 
 import torch
@@ -37,7 +42,7 @@ from situation3d_tpu_torch.models.layers import Dense, Embed
 from situation3d_tpu_torch.models.relpos import (relative_position_bucket,
                                                  relative_position_matrix)
 from situation3d_tpu_torch.models.step_graphs import (GraphCache, GreedyTokens, capture_steps,
-                                                     eager, greedy_loop)
+                                                     eager, greedy_loop, storage)
 from situation3d_tpu_torch.parallel import collectives
 from situation3d_tpu_torch.parallel.mesh import draw
 from situation3d_tpu_torch.utils.trace import spanned
@@ -46,20 +51,32 @@ NEG_INF = -1e9
 
 decode_graph_captures = 0   # +1 per greedy step graph captured, nowhere else
 decode_graph_replays = 0    # +1 per greedy step graph replayed, nowhere else
+cross_kv_projections = 0    # +1 per encoder output whose cross keys and values a decode projects
 
 
 class DecodeCache:
     """Self-attention keys and values of every decoder layer, ``[B, h,
-    max_answer_len, d_kv]`` each, and the next slot to write."""
+    max_answer_len, d_kv]`` each, and the next slot to write; ``cross``:
+    each layer's cross-attention keys (float32) and values over the encoder
+    output, ``[B, L_enc, h * d_kv]`` each, with ``cross_mask``, the encoder
+    mask as booleans. ``cross`` is None until the first step projects it
+    (:meth:`T5Decoder.project_cross`)."""
 
-    def __init__(self, layers: List[dict], index: int = 0):
+    def __init__(self, layers: List[dict], index: int = 0,
+                 cross: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                 cross_mask: Optional[torch.Tensor] = None):
         self.layers, self.index = layers, index
+        self.cross, self.cross_mask = cross, cross_mask
 
     def reorder(self, rows: torch.Tensor) -> None:
         """Keep the batch rows ``rows`` (beam search's reorder)."""
         for layer in self.layers:
             layer["key"] = layer["key"].index_select(0, rows)
             layer["value"] = layer["value"].index_select(0, rows)
+        if self.cross is not None:
+            self.cross = [(k.index_select(0, rows), v.index_select(0, rows))
+                          for k, v in self.cross]
+            self.cross_mask = self.cross_mask.index_select(0, rows)
 
 
 class T5LayerNorm(nn.Module):
@@ -100,17 +117,23 @@ class T5Attention(nn.Module):
         return x.reshape(B, -1, self.cfg.num_heads, self.cfg.d_kv).transpose(1, 2)
 
     def forward(self, hidden, kv=None, mask=None, position_bias=None,
-                cache: Optional[dict] = None, cache_index: Optional[int] = None
+                cache: Optional[dict] = None, cache_index: Optional[int] = None,
+                projected: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """mask: [B, Lk] 1 = attend. ``cache`` (this layer's slots) and
-        ``cache_index`` for a decode step of the self-attention. Returns
-        (out, position_bias)."""
+        ``cache_index`` for a decode step of the self-attention;
+        ``projected``: the keys and values of ``kv``, ``[B, Lk, h * d_kv]``
+        each (the keys may be float32 already), in place of projecting them
+        here. Returns (out, position_bias)."""
         cfg = self.cfg
         B, Lq, _ = hidden.shape
-        kv_src = hidden if kv is None else kv
         q = self._split(self.q(hidden), B)
-        k = self._split(self.k(kv_src), B)
-        v = self._split(self.v(kv_src), B)
+        if projected is None:
+            kv_src = hidden if kv is None else kv
+            k = self._split(self.k(kv_src), B)
+            v = self._split(self.v(kv_src), B)
+        else:
+            k, v = (self._split(t, B) for t in projected)
         decode = cache is not None
         if decode:
             slots = cache["key"].shape[2]
@@ -198,12 +221,13 @@ class T5DecoderBlock(nn.Module):
         self.ff = T5FF(cfg, dtype)
 
     def forward(self, x, enc, enc_mask, dec_mask, position_bias, cache=None,
-                cache_index=None):
+                cache_index=None, cross=None):
         a, position_bias = self.self_attn(self.self_attn_norm(x), mask=dec_mask,
                                           position_bias=position_bias, cache=cache,
                                           cache_index=cache_index)
         x = x + a
-        c, _ = self.cross_attn(self.cross_attn_norm(x), kv=enc, mask=enc_mask)
+        c, _ = self.cross_attn(self.cross_attn_norm(x), kv=enc, mask=enc_mask,
+                               projected=cross)
         return self.ff(x + c), position_bias
 
 
@@ -239,18 +263,33 @@ class T5Decoder(nn.Module):
             self.add_module(f"block{i}", T5DecoderBlock(cfg, i == 0, dtype))
         self.final_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype)
 
+    def project_cross(self, enc: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Every layer's cross-attention keys and values over ``enc``, which
+        a decode's steps all read; a cache keeps the keys in float32, as the
+        scores product reads them."""
+        global cross_kv_projections
+        cross_kv_projections += 1
+        attns = [getattr(self, f"block{i}").cross_attn for i in range(self.cfg.num_decoder_layers)]
+        return [(a.k(enc), a.v(enc)) for a in attns]
+
     def forward(self, dec_embeds, enc, enc_mask, dec_mask=None,
                 cache: Optional[DecodeCache] = None):
+        """With ``cache``, a decode step: at the cache's first step ``enc``
+        is projected into its cross-attention keys and values, which every
+        step reads in place of ``enc`` and ``enc_mask``."""
         x = dec_embeds.to(self.dtype)
         position_bias = None
+        if cache is not None and cache.cross is None:
+            cache.cross = [(k.float(), v) for k, v in self.project_cross(enc)]
+            cache.cross_mask = enc_mask.bool()
         for i in range(self.cfg.num_decoder_layers):
             block = getattr(self, f"block{i}")
             if cache is None:
                 x, position_bias = _run_block(block, self.cfg.remat, x, enc, enc_mask,
                                               dec_mask, position_bias)
             else:
-                x, position_bias = block(x, enc, enc_mask, dec_mask, position_bias,
-                                         cache.layers[i], cache.index)
+                x, position_bias = block(x, None, cache.cross_mask, dec_mask, position_bias,
+                                         cache.layers[i], cache.index, cache.cross[i])
         if cache is not None:
             cache.index += x.shape[1]
         return self.final_norm(x)
@@ -292,7 +331,9 @@ class T5ForConditionalGeneration(nn.Module):
                             for _ in range(cfg.num_decoder_layers)])
 
     def decode_step(self, enc, enc_mask, token_ids, cache: DecodeCache):
-        """One decode step through ``cache`` (token_ids [B, 1])."""
+        """One decode step through ``cache`` (token_ids [B, 1]); ``enc`` and
+        ``enc_mask`` are read at the cache's first step only
+        (:meth:`T5Decoder.forward`)."""
         x = self.decoder(self.shared(token_ids), enc, enc_mask, None, cache=cache)
         return self._logits(x)
 
@@ -467,23 +508,33 @@ def beam_search_decode(model: T5ForConditionalGeneration, inputs_embeds, enc_mas
 
 
 class GreedyBuffers(GreedyTokens):
-    """The static state of one greedy decode shape: the encoder's output and
-    mask, every layer's cache slots (views of one flat buffer), and the
-    tokens (:class:`GreedyTokens`)."""
+    """The static state of one greedy decode shape: every layer's cache
+    slots (views of one flat buffer), its cross-attention keys and values
+    over the encoder output with the mask, and the tokens
+    (:class:`GreedyTokens`)."""
 
     def __init__(self, model: T5ForConditionalGeneration, enc: torch.Tensor,
                  enc_mask: torch.Tensor, max_len: int):
-        cfg, B, dev = model.cfg, enc.shape[0], enc.device
+        cfg, (B, L), dev = model.cfg, enc.shape[:2], enc.device
         super().__init__(B, max_len, dev)
-        self.enc, self.enc_mask = torch.empty_like(enc), torch.empty_like(enc_mask)
-        self.slots = torch.empty((cfg.num_decoder_layers, 2, B, cfg.num_heads,
-                                  cfg.max_answer_len, cfg.d_kv), dtype=model.dtype, device=dev)
-        self.cache = DecodeCache([{"key": kv[0], "value": kv[1]} for kv in self.slots.unbind(0)])
+        self.decoder = model.decoder
+        n, inner = cfg.num_decoder_layers, cfg.num_heads * cfg.d_kv
+        self.slots = torch.empty((n, 2, B, cfg.num_heads, cfg.max_answer_len, cfg.d_kv),
+                                 dtype=model.dtype, device=dev)
+        keys = torch.empty((n, B, L, inner), dtype=torch.float32, device=dev)
+        values = torch.empty((n, B, L, inner), dtype=model.dtype, device=dev)
+        self.cache = DecodeCache([{"key": kv[0], "value": kv[1]} for kv in self.slots.unbind(0)],
+                                 cross=list(zip(keys.unbind(0), values.unbind(0))),
+                                 cross_mask=torch.empty((B, L), dtype=torch.bool, device=dev))
 
     def load(self, enc, enc_mask, start_id: int, pad_id: int) -> None:
-        """A new batch: its inputs copied in, the slots zeroed, nothing emitted."""
-        self.enc.copy_(enc)
-        self.enc_mask.copy_(enc_mask)
+        """A new batch: its cross-attention keys and values projected into
+        the buffers (the keys cast to float32 by the copy) with its mask, the
+        slots zeroed, nothing emitted."""
+        for (k, v), (k_buf, v_buf) in zip(self.decoder.project_cross(enc), self.cache.cross):
+            k_buf.copy_(k)
+            v_buf.copy_(v)
+        self.cache.cross_mask.copy_(enc_mask)
         self.slots.zero_()
         self.reset(start_id, pad_id)
 
@@ -493,7 +544,7 @@ def greedy_step(model: T5ForConditionalGeneration, b: GreedyBuffers, i: int,
     """Greedy step ``i`` on ``b``, in place and without a host read
     (:meth:`GreedyTokens.emit`). Returns the step's logits."""
     b.cache.index = i
-    logits = model.decode_step(b.enc, b.enc_mask, b.tok, b.cache)
+    logits = model.decode_step(None, None, b.tok, b.cache)
     b.emit(i, logits[:, -1], eos_id, pad_id, check)
     return logits
 
@@ -518,11 +569,15 @@ class CapturedDecode:
         decode_graph_replays += 1
 
 
+def decode_modules(model: T5ForConditionalGeneration) -> tuple:
+    """The modules a decode step reads."""
+    return model.decoder, model.shared, model.lm_head
+
+
 def decode_storage(model: T5ForConditionalGeneration) -> tuple:
     """Where the decode step's parameters and buffers live: the captured
     graphs read them through these addresses."""
-    return tuple(t.data_ptr() for m in (model.decoder, model.shared, model.lm_head)
-                 for t in itertools.chain(m.parameters(), m.buffers()))
+    return storage(decode_modules(model))
 
 
 class DecodeGraphs(GraphCache):
@@ -538,7 +593,7 @@ class DecodeGraphs(GraphCache):
             return None
         key = (*enc.shape[:2], max_len, enc.dtype, enc_mask.dtype, eos_id, pad_id,
                enc.device, torch.is_inference_mode_enabled())
-        return self.lookup(key, decode_storage(model), lambda: CapturedDecode(
+        return self.lookup(key, decode_modules(model), lambda: CapturedDecode(
             model, enc, enc_mask, max_len, start_id, eos_id, pad_id))
 
 

@@ -7,8 +7,14 @@ matmul precision.
 Tolerances: logits within 1e-5 of the largest logit (the same float32 sums
 in another order); decoded tokens equal, token for token: greedy, beam
 search (3 beams) and nucleus sampling with JAX's Gumbel draws injected.
+
+In bfloat16 compute on the same float32 parameters, the decode that reads
+the cross-attention keys and values projected once a batch, and the weight
+copies, equals bit for bit the step that projected them from the encoder
+output and cast every weight at every call (written out here).
 """
 import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +24,7 @@ import torch
 
 from situation3d_tpu.models import t5 as jt5
 from situation3d_tpu_torch.ckpt_compat.from_jax import load_jax_variables
+from situation3d_tpu_torch.models import layers
 from situation3d_tpu_torch.models import t5 as tt5
 from torch_port_util import blip2_cfgs, random_variables_of, t2n, to_numpy_tree
 
@@ -273,3 +280,106 @@ def test_remat_recomputes_blocks_with_the_same_results(ref):
     assert grads[0].keys() == grads[1].keys()
     for n in grads[0]:
         assert torch.equal(grads[0][n], grads[1][n]), n
+
+
+def _bf16(m):
+    """The tiny T5 computing in bfloat16 on the same float32 parameters."""
+    b = tt5.T5ForConditionalGeneration(m.cfg, dtype=torch.bfloat16)
+    b.load_state_dict(m.state_dict())
+    return b
+
+
+def _per_step_projection(m, enc, emask, tok, cache):
+    """A decode step as the decoder ran before it kept the cross-attention's
+    keys and values: each layer projects them from ``enc`` at every step
+    and the mask is converted there; with grad on, every (trainable) Dense
+    casts its weight at every call."""
+    with torch.enable_grad():
+        x = m.shared(tok).to(m.dtype)
+        bias = None
+        for i in range(m.cfg.num_decoder_layers):
+            blk = getattr(m.decoder, f"block{i}")
+            a, bias = blk.self_attn(blk.self_attn_norm(x), position_bias=bias,
+                                    cache=cache.layers[i], cache_index=cache.index)
+            x = x + a
+            c, _ = blk.cross_attn(blk.cross_attn_norm(x), kv=enc, mask=emask)
+            x = blk.ff(x + c)
+        cache.index += x.shape[1]
+        return m._logits(m.decoder.final_norm(x)).detach()
+
+
+@pytest.mark.parametrize("weights", ["plain", "eos"])
+def test_greedy_steps_on_the_buffers_equal_the_per_step_projection(ref, weights):
+    """Each greedy step's logits on the static buffers (keys and values
+    projected once, at ``load``) bit-equal the per-step projection's, in
+    bfloat16; the tokens too."""
+    m = _bf16(ref["port"][weights])
+    emb, emask = _t(ref["emb"]), _t(ref["emask"])
+    with torch.no_grad():
+        enc = m.encode(emb, emask)
+        n0 = tt5.cross_kv_projections
+        b = tt5.GreedyBuffers(m, enc, emask, MAX_LEN)
+        b.load(enc, emask, START, PAD)
+        got = [tt5.greedy_step(m, b, i, EOS, PAD, True) for i in range(MAX_LEN)]
+    assert tt5.cross_kv_projections == n0 + 1
+    c0 = layers.weight_copies
+    cache = m.init_cache(B)
+    out = torch.full((B, MAX_LEN), PAD, dtype=torch.long)
+    tok = torch.full((B, 1), START, dtype=torch.long)
+    done = torch.zeros(B, dtype=torch.bool)
+    for i in range(MAX_LEN):
+        want = _per_step_projection(m, enc, emask, tok, cache)
+        assert torch.equal(got[i].view(torch.int16), want.view(torch.int16)), i
+        nxt = want[:, -1].argmax(-1).masked_fill(done, PAD)
+        out[:, i] = nxt
+        done |= nxt == EOS
+        tok = nxt[:, None]
+    assert layers.weight_copies == c0        # the written-out step cast every weight
+    assert torch.equal(b.out, out)
+    with torch.no_grad():
+        assert torch.equal(tt5.greedy_decode(m, emb, emask, MAX_LEN, START, EOS, PAD), out)
+    assert tt5.cross_kv_projections == n0 + 2
+    if weights == "eos":
+        assert (out == EOS).any()
+
+
+@pytest.mark.parametrize("how", ["beam", "sample"])
+def test_decoded_tokens_equal_the_per_step_projection(ref, how, monkeypatch):
+    """3-beam and sampled tokens in bfloat16 equal the decode whose every
+    step projects the keys and values anew (``decode_step`` swapped for the
+    written-out step); one projection a decoded batch. (Greedy: the test
+    above.)"""
+    m = _bf16(ref["port"]["eos"])
+    emb, emask = _t(ref["emb"]), _t(ref["emask"])
+    gumbel = tt5.gumbel_noise((MAX_LEN, B, 128), torch.Generator().manual_seed(7), "cpu")
+    run = {"beam": lambda: tt5.beam_search_decode(m, emb, emask, MAX_LEN, START, EOS, PAD,
+                                                  num_beams=3),
+           "sample": lambda: tt5.sample_decode(m, emb, emask, MAX_LEN, START, EOS, PAD,
+                                               top_p=0.7, gumbel=gumbel)}[how]
+    n0 = tt5.cross_kv_projections
+    got = run()
+    assert tt5.cross_kv_projections == n0 + 1
+    monkeypatch.setattr(m, "decode_step", functools.partial(_per_step_projection, m))
+    want = run()
+    assert tt5.cross_kv_projections == n0 + 1
+    np.testing.assert_array_equal(t2n(got), t2n(want))
+    assert len(np.unique(t2n(want))) > 3
+
+
+def test_reorder_moves_the_cross_keys_and_values_with_their_rows(ref):
+    """Beam search's ``reorder`` keeps the projected keys, values and mask
+    of the rows it keeps, as it does the self-attention slots."""
+    m = ref["port"]["plain"]
+    emb, emask = _t(ref["emb"]), _t(ref["emask"])
+    rows = torch.tensor([2, 0, 0])
+    with torch.no_grad():
+        enc = m.encode(emb, emask)
+        cache = m.init_cache(B)
+        m.decode_step(enc, emask, torch.full((B, 1), START, dtype=torch.long), cache)
+        before = [(k.clone(), v.clone()) for k, v in cache.cross]
+        cache.reorder(rows)
+    assert len(cache.cross) == m.cfg.num_decoder_layers
+    for (k, v), (k0, v0) in zip(cache.cross, before):
+        assert k.dtype == torch.float32 and k.shape == (B, LE, 64)
+        assert torch.equal(k, k0[rows]) and torch.equal(v, v0[rows])
+    assert torch.equal(cache.cross_mask, _t(ref["emask"])[rows].bool())
