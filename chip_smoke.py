@@ -140,6 +140,7 @@ from situation3d_tpu_torch.models import layers as layers_mod
 from situation3d_tpu_torch.models import t5 as t5_mod
 from situation3d_tpu_torch.models.lfm2 import LFM2Config
 from situation3d_tpu_torch.ops import native, pointnet2
+from situation3d_tpu_torch.ops.cuda import ssm_scan
 from situation3d_tpu_torch.ops.cuda import (_build, fps, fused_conv, gather_rows,
                                             map_bits, map_lookup, moe_experts)
 from situation3d_tpu_torch.ops.projection import (CameraIntrinsics, multiview_backproject,
@@ -1188,6 +1189,208 @@ def check_moe_experts() -> dict:
                library="torch._grouped_mm: the two grouped products alone, on rows grouped by "
                        "expert, without the routing weights, the sums or the dropped choices",
                shapes=shapes, lfm2=lfm2_launches())
+    return rec
+
+
+NEMOTRON_WIDTHS = dict(E=128, M=1856, D=2688, K=6)  # Nemotron-3-Nano-30B-A3B's expert layer
+SSM_RTOL = 1e-4       # the scan and update, of the largest: float32 sums in another order
+# sha256 of LFM2's expert layer (8 and 616 tokens) and of a 4-layer captured
+# LFM2 decode's logits at the inputs of ``lfm2_digests``, as the kernels gave
+# them before Nemotron-H's relu^2 form was added (H100 80GB HBM3)
+LFM2_DIGESTS = {"moe_8": "0c784e78ca932d54", "moe_616": "b381127b7e65d455",
+                "decode_tokens": "d0580fddd14d61fa", "decode_logits": "3991f06a90348ce8"}
+
+
+def _sha(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def lfm2_digests() -> dict:
+    """LFM2's expert layer at LFM2-24B-A2B's widths (8 and 616 tokens) and a
+    4-layer captured greedy decode's step logits, hashed: equal hashes are
+    bit-equal outputs."""
+    E, M, D, K = (LFM2_WIDTHS[k] for k in "EMDK")
+    out = {}
+    for tokens in (8, 616):
+        g = torch.Generator(device=DEV).manual_seed(1000 + tokens)
+        x = torch.randn(tokens, D, generator=g, device=DEV).bfloat16()
+        w1 = (torch.randn(E, M, D, generator=g, device=DEV) / D ** 0.5).bfloat16()
+        w3 = (torch.randn(E, M, D, generator=g, device=DEV) / D ** 0.5).bfloat16()
+        w2 = (torch.randn(E, D, M, generator=g, device=DEV) / M ** 0.5).bfloat16()
+        idx = torch.topk(torch.rand(tokens, E, generator=g, device=DEV), K, -1).indices.int()
+        idx[::7, 1] = -1
+        w = torch.rand(tokens, K, generator=g, device=DEV)
+        out[f"moe_{tokens}"] = _sha(moe_experts.moe_experts(x, idx, w, w1, w3, w2))
+    cfg = LFM2Config(layer_types=("conv", "conv", "full_attention", "conv"),
+                     num_hidden_layers=4)
+    model = Blip2LFM2(QFormerConfig(), cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                      device=DEV, seed=SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(13, 44, BATCH)
+    ids = np.zeros((BATCH, 64), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, :n] = rng.randint(8, cfg.vocab_size, n)
+    N = QFormerConfig().scene_token_capacity
+    batch = {"pc_feat": torch.randn(BATCH, N, 1408, generator=g, device=DEV),
+             "pc": torch.randint(0, 256, (BATCH, N, 3), generator=g, device=DEV),
+             "pc_mask": torch.ones(BATCH, N, dtype=torch.int32, device=DEV),
+             "input_ids": ids, "input_mask": (np.arange(64)[None] < lens[:, None]).astype(np.int64)}
+    tokens = lfm2_predict_answers(model, batch, max_len=10)
+    captured = next(iter(model.decode_graphs.keys.values()))
+    out["decode_tokens"] = _sha(tokens)
+    out["decode_logits"] = _sha(torch.stack([x.clone() for x in captured.logits]))
+    del model, captured
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure_relu2_moe(tokens: int) -> dict:
+    """``moe_experts``' relu^2 form at Nemotron-3-Nano's widths against its
+    plain version, choices drawn uniformly, a few dropped; the call's time,
+    the plain version's, and the bound (each chosen expert's two matrices
+    read once, or 4 D M operations a routed row at the bf16 peak)."""
+    E, M, D, K = (NEMOTRON_WIDTHS[k] for k in "EMDK")
+    g = torch.Generator(device=DEV).manual_seed(tokens)
+    x = torch.randn(tokens, D, generator=g, device=DEV).bfloat16()
+    up = (torch.randn(E, M, D, generator=g, device=DEV) / D ** 0.5).bfloat16()
+    down = (torch.randn(E, D, M, generator=g, device=DEV) / M ** 0.5).bfloat16()
+    idx = torch.topk(torch.rand(tokens, E, generator=g, device=DEV), K, -1).indices.int()
+    idx[::7, 1] = -1
+    w = torch.rand(tokens, K, generator=g, device=DEV)
+    c_kernel = torch.zeros(2, dtype=torch.int64, device=DEV)
+    c_plain = torch.zeros(2, dtype=torch.int64, device=DEV)
+    got = moe_experts.moe_experts(x, idx, w, up, None, down, c_kernel)
+    want = moe_experts.moe_experts_plain(x, idx, w, up, None, down, c_plain)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= MOE_RTOL:
+        fail(f"moe_experts relu2 {tokens} tokens: max err {err} > {MOE_RTOL} of the largest")
+    if c_kernel.tolist() != c_plain.tolist():
+        fail(f"moe_experts relu2 {tokens} tokens: counters {c_kernel.tolist()} != plain "
+             f"{c_plain.tolist()}")
+    rows, read = c_plain.tolist()
+    bytes_ms = (read * 2 * D * M * 2 + tokens * D * (2 + 4)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * 4 * D * M / BF16_FLOPS * 1e3
+    return {"tokens": tokens, "rows_routed": rows, "experts_read": read, "max_rel_err": err,
+            "ms": time_cuda(lambda: moe_experts.moe_experts(x, idx, w, up, None, down), iters=10),
+            "plain_ms": time_cuda(lambda: moe_experts.moe_experts_plain(x, idx, w, up, None, down),
+                                  iters=2, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def measure_ssm(L: int) -> dict:
+    """The prefill scan (B=8 rows of ``L`` positions, a third of them pad)
+    and the decode update (B=8) at Nemotron-3-Nano's widths against their
+    plain versions; CUDA-event times and the bounds (``flops/nemotron_h.py``'s
+    bytes: x, B, C, dt read and y written a position, the state written a
+    prefill row, read and written a decode row)."""
+    B, H, G, P, N = BATCH, 64, 8, 64, 128
+    conv = H * P + 2 * G * N
+    g = torch.Generator(device=DEV).manual_seed(L)
+    xbc = torch.randn(B, L, conv, generator=g, device=DEV)
+    dt = torch.nn.functional.softplus(torch.randn(B, L, H, generator=g, device=DEV) - 3)
+    dt[:, :L // 3] = 0
+    A = -torch.rand(H, generator=g, device=DEV) * 15 - 1
+    D = torch.ones(H, device=DEV)
+    keep = dt[..., 0] > 0
+    s_k = torch.empty(B, H, P, N, device=DEV)
+    s_p = torch.empty_like(s_k)
+    y_k = ssm_scan.ssm_scan(xbc, dt, A, D, G, N, s_k, keep)
+    y_p = ssm_scan.ssm_scan_plain(xbc, dt, A, D, G, N, s_p)
+    u_k = ssm_scan.ssm_update(xbc[:, -1].contiguous(), dt[:, -1].contiguous(), A, D, G, N, s_k)
+    u_p = ssm_scan.ssm_update_plain(xbc[:, -1], dt[:, -1], A, D, G, N, s_p)
+    torch.cuda.synchronize()
+    errs = {k: float((a - b).abs().max() / b.abs().max())
+            for k, (a, b) in {"scan_y": (y_k, y_p), "update_y": (u_k, u_p),
+                              "state": (s_k, s_p)}.items()}
+    for k, e in errs.items():
+        if not e <= SSM_RTOL:
+            fail(f"ssm L={L} {k}: max err {e} > {SSM_RTOL} of the largest")
+    pos, state = (conv + H + H * P) * 4, H * P * N * 4
+    x1, d1 = xbc[:, -1].contiguous(), dt[:, -1].contiguous()
+    return {"L": L, "max_rel_err": errs,
+            "scan_ms": time_cuda(lambda: ssm_scan.ssm_scan(xbc, dt, A, D, G, N, s_k, keep),
+                                 iters=10),
+            "scan_plain_ms": time_cuda(lambda: ssm_scan.ssm_scan_plain(xbc, dt, A, D, G, N, s_p),
+                                       iters=3, warmup=1),
+            "scan_bound_ms": (B * L * pos + B * state) / HBM_BYTES_PER_S * 1e3,
+            "update_ms": time_cuda(lambda: ssm_scan.ssm_update(x1, d1, A, D, G, N, s_k),
+                                   iters=20),
+            "update_plain_ms": time_cuda(lambda: ssm_scan.ssm_update_plain(x1, d1, A, D, G, N,
+                                                                           s_p), iters=5),
+            "update_bound_ms": B * (pos + 2 * state) / HBM_BYTES_PER_S * 1e3}
+
+
+def nemotron_captured_decode() -> dict:
+    """``predict_answers`` at Nemotron-3-Nano's widths cut to 4 layers
+    (Mamba, experts, attention, experts), B=8, 10 tokens: the replayed
+    steps' tokens and logits equal the eager ones, and the launches of the
+    SSM and expert kernels around a replayed batch (the prefill's) and an
+    eager one."""
+    from situation3d_tpu_torch.models.blip2_nemotron_h import Blip2NemotronH
+    from situation3d_tpu_torch.models.blip2_lfm2 import predict_answers
+    from situation3d_tpu_torch.models.nemotron_h import NemotronHConfig
+    cfg = NemotronHConfig(hybrid_override_pattern="ME*E", num_hidden_layers=4)
+    model = Blip2NemotronH(QFormerConfig(), cfg, dtype=torch.bfloat16,
+                           param_dtype=torch.bfloat16, device=DEV, seed=SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(13, 44, BATCH)
+    ids = np.zeros((BATCH, 64), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, :n] = rng.randint(8, cfg.vocab_size, n)
+    N = QFormerConfig().scene_token_capacity
+    batch = {"pc_feat": torch.randn(BATCH, N, 1408, generator=g, device=DEV),
+             "pc": torch.randint(0, 256, (BATCH, N, 3), generator=g, device=DEV),
+             "pc_mask": torch.ones(BATCH, N, dtype=torch.int32, device=DEV),
+             "input_ids": ids, "input_mask": (np.arange(64)[None] < lens[:, None]).astype(np.int64)}
+    T = 10
+    predict_answers(model, batch, max_len=T)                       # captures
+    l0, m0 = ssm_scan.launches, moe_experts.launches
+    replayed = predict_answers(model, batch, max_len=T)
+    captured = next(iter(model.decode_graphs.keys.values()))
+    logits = torch.stack([x.clone() for x in captured.logits])
+    torch.cuda.synchronize()
+    l1, m1 = ssm_scan.launches - l0, moe_experts.launches - m0
+    eager = predict_answers(model, batch, max_len=T, graphs=False)
+    torch.cuda.synchronize()
+    l2, m2 = ssm_scan.launches - l0 - l1, moe_experts.launches - m0 - m1
+    if not torch.equal(replayed, eager):
+        fail("nemotron predict_answers: replayed tokens != eager tokens")
+    lm = model.lm
+    with torch.no_grad():
+        b = lfm2_mod.GreedyBuffers(lm, BATCH, model.prefix_slots, T, DEV)
+        b.reset(cfg.pad_token_id, cfg.pad_token_id)
+        embeds, m = model.prefix(batch)
+        b.emit(0, lm.prefill(embeds, m, b.cache), cfg.eos_token_id, cfg.pad_token_id, True)
+        for i in range(1, T):
+            step = lfm2_mod.greedy_step(lm, b, i, cfg.eos_token_id, cfg.pad_token_id, True)
+            if not torch.equal(step, logits[i - 1]):
+                fail(f"nemotron decode step {i}: replayed logits != eager")
+    if (l1, m1) != (1, 2) or (l2, m2) != (T, 2 * T):
+        fail(f"nemotron launches: replayed batch ssm {l1} moe {m1} (want 1, 2), eager ssm {l2} "
+             f"moe {m2} (want {T}, {2 * T})")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches_replayed_batch": {"ssm": l1, "moe_experts": m1},
+            "launches_eager_batch": {"ssm": l2, "moe_experts": m2}}
+
+
+def phase_nemotron() -> dict:
+    """Nemotron-H's kernels against their plain versions (the scan and the
+    update, the relu^2 expert layer at a decode step's 8 tokens and a
+    prefill's 616), its captured decode against eager, and LFM2's expert
+    layer and captured decode bit-equal to before (``LFM2_DIGESTS``)."""
+    rec = {"ssm": [measure_ssm(1), measure_ssm(77), measure_ssm(432)],
+           "moe_relu2": [measure_relu2_moe(8), measure_relu2_moe(616)],
+           "decode": nemotron_captured_decode(), "lfm2_digests": lfm2_digests()}
+    for k, want in LFM2_DIGESTS.items():
+        if rec["lfm2_digests"].get(k) != want:
+            fail(f"LFM2 {k}: digest {rec['lfm2_digests'].get(k)} != before {want}")
+    emit("nemotron", **rec)
     return rec
 
 
@@ -3787,7 +3990,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of: "
                     "device,kernels,forward,train,serving,minkunet,detection,sqa3d,"
-                    "sortplan,openscene,lstm,multiview,blip2,blip2_stage1,ddp,reference")
+                    "sortplan,openscene,lstm,multiview,blip2,blip2_stage1,ddp,reference,nemotron")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3797,7 +4000,7 @@ def main() -> int:
     phases = [p for p in args.only.split(",") if p] or \
         ["device", "kernels", "forward", "train", "serving", "minkunet", "detection",
          "sqa3d", "sortplan", "openscene", "lstm", "multiview", "blip2", "blip2_stage1",
-         "ddp", "reference"]
+         "ddp", "reference", "nemotron"]
     full_run = not args.only
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
@@ -3846,6 +4049,8 @@ def main() -> int:
     if "reference" in phases:
         phase_reference()
         phase_reference_detection()
+    if "nemotron" in phases:
+        phase_nemotron()
     if not full_run:
         return 0
 

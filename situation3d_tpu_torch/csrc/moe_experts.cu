@@ -1,8 +1,10 @@
 // The expert layer's grouped products: every expert's segment of
 // (token, expert) assignments, as the segment plan (csrc/segment_plan.cu)
-// groups them, through that expert's SwiGLU.
+// groups them, through that expert's feed-forward, a SwiGLU (LFM2) or a
+// non-gated relu^2 (Nemotron-H):
 //
 //   gate-up:  h[p, :]  = silu(w1[e] x[t]) * (w3[e] x[t])      (bf16 [A, M])
+//     or up:  h[p, :]  = relu(w1[e] x[t])^2                   (RELU2)
 //   down:     y[a, :]  = weight[a] * (w2[e] h[p])              (f32 [A, D])
 //
 // for every sorted position p in expert e's segment offsets[e] ..
@@ -20,7 +22,8 @@
 // by the shapes, and a block whose expert has no rows returns at once, so a
 // step never reads the plan on the host and can be captured in a graph. A
 // warp owns 4 tiles of 8 weight rows (gate-up: 16 columns of w1 and the same
-// 16 of w3, so silu(gate) * up is formed in registers; down: 32 output
+// 16 of w3, so silu(gate) * up is formed in registers; the relu^2 up: 32
+// columns of w1, a warp past the last column idle; down: 32 output
 // columns) and walks the reduction axis 64 at a time with mma.sync
 // m16n8k16 (bf16 in, f32 sums), for up to 64 segment rows at once; longer
 // segments take further passes. No shared memory: each lane loads 16 bytes
@@ -60,9 +63,9 @@ __device__ __forceinline__ uint4 load_stream(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ float silu(float g) { return g / (1.f + expf(-g)); }
 
-// GATE: a_src = x [N, D], wa = w1, wb = w3, out h; else a_src = h [A, M],
-// wa = w2, out y.
-template <bool GATE>
+// GATE: a_src = x [N, D], wa = w1, wb = w3 (unread with RELU2), out h; else
+// a_src = h [A, M], wa = w2, out y.
+template <bool GATE, bool RELU2 = false>
 __global__ void __launch_bounds__(MOE_WARPS * 32)
     moe_grouped_kernel(const __nv_bfloat16* __restrict__ a_src,
                        const int* __restrict__ perm,
@@ -79,11 +82,14 @@ __global__ void __launch_bounds__(MOE_WARPS * 32)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const int kdim = GATE ? D : M;
-  const int col0 = (blockIdx.x * MOE_WARPS + warp) * (GATE ? 16 : 32);
+  const int col0 = (blockIdx.x * MOE_WARPS + warp) * (GATE && !RELU2 ? 16 : 32);
+  if (RELU2 && col0 >= M) return;
   const __nv_bfloat16* bp[MOE_NT];
 #pragma unroll
   for (int nt = 0; nt < MOE_NT; ++nt) {
-    if (GATE)
+    if (RELU2)
+      bp[nt] = wa + ((size_t)e * M + col0 + nt * 8 + g) * (size_t)D + 8 * c;
+    else if (GATE)
       bp[nt] = (nt < 2 ? wa : wb) +
                ((size_t)e * M + col0 + (nt & 1) * 8 + g) * (size_t)D + 8 * c;
     else
@@ -144,7 +150,15 @@ __global__ void __launch_bounds__(MOE_WARPS * 32)
         const int r = r0 + mt * 16 + hi * 8 + g;
         if (r >= seg) continue;
         const int pos = s + r;
-        if (GATE) {
+        if (RELU2) {
+#pragma unroll
+          for (int nt = 0; nt < MOE_NT; ++nt) {
+            float v0 = fmaxf(acc[mt][nt][2 * hi], 0.f);
+            float v1 = fmaxf(acc[mt][nt][2 * hi + 1], 0.f);
+            *reinterpret_cast<__nv_bfloat162*>(h_out + (size_t)pos * M + col0 + nt * 8 +
+                                               2 * c) = __floats2bfloat162_rn(v0 * v0, v1 * v1);
+          }
+        } else if (GATE) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             float v0 = silu(acc[mt][half][2 * hi]) * acc[mt][half + 2][2 * hi];
@@ -184,6 +198,30 @@ extern "C" int s3d_moe_experts(const void* x, const void* perm, const void* offs
       (const __nv_bfloat16*)x, (const int*)perm, (const int*)offsets,
       (const float*)weight, (const __nv_bfloat16*)w1, (const __nv_bfloat16*)w3,
       (__nv_bfloat16*)h, (float*)y, K, D, M);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  moe_grouped_kernel<false><<<dim3(D / (MOE_WARPS * 32), E), block, 0, st>>>(
+      (const __nv_bfloat16*)h, (const int*)perm, (const int*)offsets,
+      (const float*)weight, (const __nv_bfloat16*)w2, nullptr, nullptr, (float*)y,
+      K, D, M);
+  return (int)cudaGetLastError();
+}
+
+// The non-gated form: h = relu(w1[e] x)^2, then the same down product.
+// w1 bf16 [E, M, D]; w2 bf16 [E, D, M]; D a multiple of 128, M of 64.
+extern "C" int s3d_moe_experts_relu2(const void* x, const void* perm, const void* offsets,
+                                     const void* weight, const void* w1, const void* w2,
+                                     void* h, void* y, int N, int K, int E, int D, int M,
+                                     void* stream) {
+  if (N <= 0 || K <= 0 || E <= 0 || D % 128 != 0 || M % 64 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 block(MOE_WARPS * 32);
+  moe_grouped_kernel<true, true><<<dim3((M + MOE_WARPS * 32 - 1) / (MOE_WARPS * 32), E), block,
+                                   0, st>>>(
+      (const __nv_bfloat16*)x, (const int*)perm, (const int*)offsets,
+      (const float*)weight, (const __nv_bfloat16*)w1, nullptr, (__nv_bfloat16*)h,
+      (float*)y, K, D, M);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   moe_grouped_kernel<false><<<dim3(D / (MOE_WARPS * 32), E), block, 0, st>>>(

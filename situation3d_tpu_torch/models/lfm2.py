@@ -34,10 +34,10 @@ Batches are left-padded: a row's [prefix ; prompt] ends at the last
 position, its real positions are contiguous, RoPE positions count real
 positions only, pad keys are masked, the conv sees zeros before the first
 real position, and pad tokens are routed to no expert. So a row computes
-what it would alone. :class:`HybridCache` holds both kinds of decode state
-side by side: conv states ``[B, hidden, conv_L_cache]`` (float32) in the conv
-layers and ``slots`` KV positions a row in the attention layers, the prefix
-right-aligned to ``prefix_slots`` and decode step ``i`` writing slot
+what it would alone. Its :class:`DecodeState` holds both kinds of decode
+state side by side: conv states ``[B, hidden, conv_L_cache]`` (float32) in
+the conv layers and ``slots`` KV positions a row in the attention layers, the
+prefix right-aligned to ``prefix_slots`` and decode step ``i`` writing slot
 ``prefix_slots + i``.
 """
 from __future__ import annotations
@@ -117,39 +117,46 @@ class RMSNorm(nn.Module):
 # ---------------------------------------------------------------------------
 # the decode state
 
-class HybridCache:
-    """Conv states of the conv layers and KV slots of the attention layers,
-    each one flat buffer, with the rows' key mask and next RoPE position."""
+class DecodeState:
+    """The decode state of a hybrid decoder, one flat buffer a kind: conv
+    states ``conv`` [layers, B, channels, taps] (float32), SSM states
+    ``ssm`` [layers, B, heads, head_dim, state] (float32, None for a model
+    without SSM layers) and KV slots ``kv`` [layers, 2, B, kv_heads, slots,
+    head_dim] (``dtype``), with the rows' key mask and next position. The
+    prefix is right-aligned to ``prefix_slots``; decode step ``i`` writes
+    slot ``prefix_slots + i``."""
 
-    def __init__(self, cfg: LFM2Config, batch: int, prefix_slots: int, new_slots: int,
-                 dtype: torch.dtype, device):
-        n_conv = sum(t == "conv" for t in cfg.layer_types)
-        n_attn = len(cfg.layer_types) - n_conv
+    def __init__(self, batch: int, prefix_slots: int, new_slots: int, dtype: torch.dtype,
+                 device, conv: Tuple[int, int, int], kv: Tuple[int, int, int],
+                 ssm: Optional[Tuple[int, int, int, int]] = None):
         self.prefix_slots = prefix_slots
         self.slots = prefix_slots + new_slots
-        self.conv = torch.zeros((n_conv, batch, cfg.hidden_size, cfg.conv_L_cache),
-                                dtype=torch.float32, device=device)
-        self.kv = torch.zeros((n_attn, 2, batch, cfg.num_key_value_heads, self.slots,
-                               cfg.head_dim), dtype=dtype, device=device)
+        n_conv, channels, taps = conv
+        n_attn, kv_heads, head_dim = kv
+        self.conv = torch.zeros((n_conv, batch, channels, taps), dtype=torch.float32,
+                                device=device)
+        self.ssm = None if ssm is None else torch.zeros((ssm[0], batch, *ssm[1:]),
+                                                        dtype=torch.float32, device=device)
+        self.kv = torch.zeros((n_attn, 2, batch, kv_heads, self.slots, head_dim), dtype=dtype,
+                              device=device)
         self.mask = torch.zeros((batch, self.slots), dtype=torch.bool, device=device)
         self.position = torch.zeros(batch, dtype=torch.long, device=device)
 
     def zero_(self) -> None:
-        self.conv.zero_()
-        self.kv.zero_()
-        self.mask.zero_()
-        self.position.zero_()
+        for t in (self.conv, self.ssm, self.kv, self.mask, self.position):
+            if t is not None:
+                t.zero_()
 
 
 @dataclass
 class _Ctx:
     """What a layer needs beside its input: the mode, the cache and where it
     writes, the key mask, RoPE's cos / sin, the rows that are real."""
-    cache: Optional[HybridCache]
+    cache: Optional[DecodeState]
     step: Optional[int]                 # decode step index; None in a prefill
     keep: Optional[torch.Tensor]        # bool [B, L]: real positions (prefill)
-    cos: torch.Tensor
-    sin: torch.Tensor
+    cos: Optional[torch.Tensor]         # None: no positional encoding
+    sin: Optional[torch.Tensor]
     conv_slot: List[int]
     attn_slot: List[int]
 
@@ -174,6 +181,36 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 # mixers
 
+def causal_conv(u: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                keep: torch.Tensor, state: Optional[torch.Tensor]) -> torch.Tensor:
+    """The causal depthwise conv of a left-padded prefill: ``u`` float32 [B,
+    L, C] (zeroed at pad positions, so a row sees zeros before its first
+    real one), ``w`` [C, taps], ``bias`` [C] or None. ``state`` [B, C, taps]
+    takes the last ``taps`` inputs. Returns float32 [B, L, C]."""
+    u = u * keep[..., None]
+    L, taps = u.shape[1], w.shape[1]
+    pad = F.pad(u.transpose(1, 2), (taps - 1, 0))           # [B, C, taps - 1 + L]
+    y = pad[..., 0:L] * w[:, 0:1]
+    for j in range(1, taps):
+        y = y + pad[..., j:j + L] * w[:, j:j + 1]
+    if bias is not None:
+        y = y + bias[:, None]
+    if state is not None:
+        state.copy_(pad[..., -taps:])
+    return y.transpose(1, 2)
+
+
+def causal_conv_step(state: torch.Tensor, u: torch.Tensor, w: torch.Tensor,
+                     bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One decode position: ``u`` [B, C] shifted into ``state`` [B, C, taps]
+    in place; returns the conv's float32 [B, C]."""
+    state.copy_(torch.cat([state[..., 1:], u[:, :, None]], -1))
+    y = state[..., 0] * w[:, 0]
+    for j in range(1, w.shape[1]):
+        y = y + state[..., j] * w[:, j]
+    return y if bias is None else y + bias
+
+
 class ShortConv(nn.Module):
     def __init__(self, cfg: LFM2Config, dtype: torch.dtype):
         super().__init__()
@@ -187,24 +224,11 @@ class ShortConv(nn.Module):
         b, c, xt = self.in_proj(x).float().chunk(3, -1)
         bx = b * xt                                         # [B, L, D]
         w = self.conv.weight.float()[:, 0]                  # [D, taps]
-        taps = w.shape[1]
         if ctx.step is None:
-            bx = bx * ctx.keep[..., None]
-            L = bx.shape[1]
-            pad = F.pad(bx.transpose(1, 2), (taps - 1, 0))  # [B, D, taps - 1 + L]
-            y = pad[..., 0:L] * w[:, 0:1]
-            for j in range(1, taps):
-                y = y + pad[..., j:j + L] * w[:, j:j + 1]
-            if ctx.cache is not None:
-                ctx.cache.conv[slot].copy_(pad[..., -taps:])
-            y = y.transpose(1, 2)
+            y = causal_conv(bx, w, None, ctx.keep,
+                            None if ctx.cache is None else ctx.cache.conv[slot])
         else:
-            state = ctx.cache.conv[slot]
-            state.copy_(torch.cat([state[..., 1:], bx[:, 0, :, None]], -1))
-            y = state[..., 0] * w[:, 0]
-            for j in range(1, taps):
-                y = y + state[..., j] * w[:, j]
-            y = y[:, None]
+            y = causal_conv_step(ctx.cache.conv[slot], bx[:, 0], w, None)[:, None]
         return self.out_proj(c * y)
 
 
@@ -225,32 +249,44 @@ class GQAttention(nn.Module):
         cfg = self.cfg
         B, L, _ = x.shape
         H, KV, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        G = H // KV
         q = apply_rope(self.q_layernorm(self.q_proj(x).view(B, L, H, d)), ctx.cos, ctx.sin)
         k = apply_rope(self.k_layernorm(self.k_proj(x).view(B, L, KV, d)), ctx.cos, ctx.sin)
         v = self.v_proj(x).view(B, L, KV, d)
-        k, v = k.to(self.dtype).transpose(1, 2), v.to(self.dtype).transpose(1, 2)
-        if ctx.step is None:
-            if ctx.cache is not None:
-                P = ctx.cache.prefix_slots
-                ctx.cache.kv[slot, 0, :, :, P - L:P] = k
-                ctx.cache.kv[slot, 1, :, :, P - L:P] = v
-            causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-            keep = causal[None] & ctx.keep[:, None, :]          # [B, L, L]
-        else:
-            at = ctx.cache.prefix_slots + ctx.step
-            ctx.cache.kv[slot, 0, :, :, at] = k[:, :, 0]
-            ctx.cache.kv[slot, 1, :, :, at] = v[:, :, 0]
-            k, v = ctx.cache.kv[slot, 0], ctx.cache.kv[slot, 1]
-            keep = ctx.cache.mask[:, None, :]                   # [B, 1, S]
-        # query heads grouped by their KV head: [B, KV, G * L, d]
-        qg = q.view(B, L, KV, G, d).permute(0, 2, 3, 1, 4).reshape(B, KV, G * L, d)
-        scores = torch.matmul(qg, k.float().transpose(-1, -2)) * (d ** -0.5)
-        scores = scores.view(B, KV, G, L, -1)
-        scores = torch.where(keep[:, None, None], scores, scores.new_full((), NEG_INF))
-        att = F.softmax(scores, -1).view(B, KV, G * L, -1)
-        out = torch.matmul(att, v.float()).view(B, KV, G, L, d)
-        return self.out_proj(out.permute(0, 3, 1, 2, 4).reshape(B, L, H * d))
+        return self.out_proj(attend(q, k, v, ctx, slot, self.dtype))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx: _Ctx, slot: int,
+           dtype: torch.dtype) -> torch.Tensor:
+    """Causal GQA over the prefill's keys or the cache's: ``q`` float32 [B, L,
+    H, d], ``k`` / ``v`` [B, L, KV, d], rounded to ``dtype`` as the KV cache
+    holds them (a prefill writes them at the prefix slots, a decode step at
+    its slot); scores and softmax float32 at ``1/sqrt(d)``, pad keys masked.
+    Returns float32 [B, L, H * d]."""
+    B, L, H, d = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    k, v = k.to(dtype).transpose(1, 2), v.to(dtype).transpose(1, 2)
+    if ctx.step is None:
+        if ctx.cache is not None:
+            P = ctx.cache.prefix_slots
+            ctx.cache.kv[slot, 0, :, :, P - L:P] = k
+            ctx.cache.kv[slot, 1, :, :, P - L:P] = v
+        causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+        keep = causal[None] & ctx.keep[:, None, :]          # [B, L, L]
+    else:
+        at = ctx.cache.prefix_slots + ctx.step
+        ctx.cache.kv[slot, 0, :, :, at] = k[:, :, 0]
+        ctx.cache.kv[slot, 1, :, :, at] = v[:, :, 0]
+        k, v = ctx.cache.kv[slot, 0], ctx.cache.kv[slot, 1]
+        keep = ctx.cache.mask[:, None, :]                   # [B, 1, S]
+    # query heads grouped by their KV head: [B, KV, G * L, d]
+    qg = q.view(B, L, KV, G, d).permute(0, 2, 3, 1, 4).reshape(B, KV, G * L, d)
+    scores = torch.matmul(qg, k.float().transpose(-1, -2)) * (d ** -0.5)
+    scores = scores.view(B, KV, G, L, -1)
+    scores = torch.where(keep[:, None, None], scores, scores.new_full((), NEG_INF))
+    att = F.softmax(scores, -1).view(B, KV, G * L, -1)
+    out = torch.matmul(att, v.float()).view(B, KV, G, L, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, L, H * d)
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +318,22 @@ class Experts(nn.Module):
         self.w2 = nn.Parameter(torch.empty(E, D, M))
 
 
+def sigmoid_topk_route(x: torch.Tensor, gate: torch.Tensor, bias: Optional[torch.Tensor],
+                       k: int, normalise: bool, eps: float, scale: float):
+    """float32 routing of rows ``x`` [N, D] by sigmoid scores ``s =
+    sigmoid(x gate^T)``: the experts ``top_k(s + bias)`` (``bias`` None:
+    ``s``), each weighted by its own score, over the chosen scores' sum plus
+    ``eps`` where ``normalise``, times ``scale``. Returns (int32 experts [N,
+    k], float32 weights [N, k])."""
+    s = torch.sigmoid(F.linear(x.float(), gate.float()))
+    pick = s + bias.float() if bias is not None else s
+    idx = torch.topk(pick, k, dim=-1).indices
+    w = s.gather(-1, idx)
+    if normalise:
+        w = w / (w.sum(-1, keepdim=True) + eps)
+    return idx.to(torch.int32), w * scale
+
+
 class MoEFF(nn.Module):
     """The expert feed-forward. Where ``routes`` is a list, each eager call
     appends the int32 experts [N, k] it hands the expert layer (-1 for a pad
@@ -300,13 +352,10 @@ class MoEFF(nn.Module):
         """float32 routing of rows ``x`` [N, D]: (int32 experts [N, k], float32
         weights [N, k])."""
         cfg = self.cfg
-        s = torch.sigmoid(F.linear(x.float(), self.gate.weight.float()))
-        pick = s + self.expert_bias.float() if cfg.use_expert_bias else s
-        idx = torch.topk(pick, cfg.num_experts_per_tok, dim=-1).indices
-        w = s.gather(-1, idx)
-        if cfg.norm_topk_prob:
-            w = w / (w.sum(-1, keepdim=True) + 1e-6)
-        return idx.to(torch.int32), w * cfg.routed_scaling_factor
+        return sigmoid_topk_route(x, self.gate.weight,
+                                  self.expert_bias if cfg.use_expert_bias else None,
+                                  cfg.num_experts_per_tok, cfg.norm_topk_prob, 1e-6,
+                                  cfg.routed_scaling_factor)
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
         B, L, D = x.shape
@@ -350,6 +399,8 @@ class Lfm2ForCausalLM(nn.Module):
     ``dtype``. Built where torch's default device says; ``Blip2LFM2`` builds
     it on ``meta`` and places it."""
 
+    span = "lfm2"
+
     def __init__(self, cfg: LFM2Config, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -376,9 +427,16 @@ class Lfm2ForCausalLM(nn.Module):
         return self.embed_tokens(ids)
 
     def init_cache(self, batch: int, prefix_slots: int, new_slots: int, device=None
-                   ) -> HybridCache:
-        return HybridCache(self.cfg, batch, prefix_slots, new_slots, self.dtype,
-                           device or self.embed_tokens.weight.device)
+                   ) -> DecodeState:
+        """Conv states of the conv layers and KV slots of the attention
+        layers; no SSM states."""
+        cfg = self.cfg
+        n_conv = sum(t == "conv" for t in cfg.layer_types)
+        return DecodeState(batch, prefix_slots, new_slots, self.dtype,
+                           device or self.embed_tokens.weight.device,
+                           conv=(n_conv, cfg.hidden_size, cfg.conv_L_cache),
+                           kv=(len(cfg.layer_types) - n_conv, cfg.num_key_value_heads,
+                               cfg.head_dim))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """float32 logits of the last hidden states ``x``."""
@@ -391,7 +449,7 @@ class Lfm2ForCausalLM(nn.Module):
         return x
 
     def hidden_states(self, inputs_embeds: torch.Tensor, mask: torch.Tensor,
-                      cache: Optional[HybridCache] = None) -> torch.Tensor:
+                      cache: Optional[DecodeState] = None) -> torch.Tensor:
         """float32 [B, L, D] after the last layer (before ``embedding_norm``)
         of a left-padded batch; fills ``cache`` (its prefix right-aligned, the
         rows' key mask and next positions) where one is given."""
@@ -408,12 +466,12 @@ class Lfm2ForCausalLM(nn.Module):
         return self._run(inputs_embeds.float(), ctx)
 
     def prefill(self, inputs_embeds: torch.Tensor, mask: torch.Tensor,
-                cache: HybridCache) -> torch.Tensor:
+                cache: DecodeState) -> torch.Tensor:
         """float32 logits [B, vocab] at the last position of a left-padded
         batch; the cache takes its state."""
         return self._logits(self.hidden_states(inputs_embeds, mask, cache)[:, -1])
 
-    def decode_step(self, token_ids: torch.Tensor, cache: HybridCache, step: int
+    def decode_step(self, token_ids: torch.Tensor, cache: DecodeState, step: int
                     ) -> torch.Tensor:
         """One token a row (``token_ids`` [B, 1]) at slot ``prefix_slots +
         step``; float32 logits [B, vocab]. No host read."""

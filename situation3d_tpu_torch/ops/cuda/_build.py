@@ -43,6 +43,9 @@ _SIGNATURES = {
     "s3d_segment_plan_scratch_ints": [_I, _I, _I],
     "s3d_fps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "s3d_moe_experts": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "s3d_moe_experts_relu2": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "s3d_ssm_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "s3d_ssm_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 _RESTYPES = {"s3d_segment_plan_scratch_ints": ctypes.c_longlong}   # else c_int
 

@@ -1,10 +1,12 @@
 """The expert layer of a sparse mixture of experts: each token's chosen
-experts, each a SwiGLU ``w2(silu(w1 x) * w3 x)``, weighted by the router
-and summed. The CUDA route and its plain version.
+experts, each a SwiGLU ``w2(silu(w1 x) * w3 x)`` or, given no ``w3``, a
+non-gated ``w2(relu(w1 x)^2)``, weighted by the router and summed. The CUDA
+route and its plain version.
 
 Replaces no TPU kernel: the JAX package holds no model with experts. It was
 added for LFM2's 38 expert layers (``models/lfm2.py``), where the experts'
-weights are about 90% of the bytes a greedy batch reads.
+weights are about 90% of the bytes a greedy batch reads; Nemotron-H's 23
+relu^2 expert layers (``models/nemotron_h.py``) take the non-gated form.
 
 Bound on an H100: bytes. A decode step routes a few rows to each chosen
 expert, so every chosen expert's 18.9 MB of bfloat16 weights is streamed
@@ -18,8 +20,9 @@ no host read, so that a step can be captured in a CUDA graph:
    (expert -1: a padding token) take no segment;
 2. two launches of the grouped kernel (``csrc/moe_experts.cu``), a block
    per (expert, column tile), a grid fixed by the shapes; a block of an empty
-   segment exits at once. The first computes ``h = silu(w1 x) * w3 x`` of each
-   segment row into a bfloat16 scratch, the second ``weight * w2 h`` into
+   segment exits at once. The first computes ``h = silu(w1 x) * w3 x`` (or
+   ``relu(w1 x)^2``, a template form of the same kernel) of each segment
+   row into a bfloat16 scratch, the second ``weight * w2 h`` into
    the row of the assignment, each from ``mma.sync`` products of bfloat16
    with float32 sums. A warp streams its weight rows once for up to 64 rows
    of the segment, in 16-byte loads that skip L1;
@@ -62,16 +65,16 @@ def _check(x, idx, weights, w1, w3, w2) -> None:
     N, D = x.shape
     E, M, D1 = w1.shape
     if (idx.dim() != 2 or idx.shape[0] != N or weights.shape != idx.shape or D1 != D
-            or w3.shape != w1.shape or tuple(w2.shape) != (E, D, M)):
+            or (w3 is not None and w3.shape != w1.shape) or tuple(w2.shape) != (E, D, M)):
         raise ValueError(f"moe_experts: x {tuple(x.shape)}, idx {tuple(idx.shape)}, weights "
-                         f"{tuple(weights.shape)}, w1 {tuple(w1.shape)}, w3 {tuple(w3.shape)}, "
-                         f"w2 {tuple(w2.shape)}")
+                         f"{tuple(weights.shape)}, w1 {tuple(w1.shape)}, "
+                         f"w3 {None if w3 is None else tuple(w3.shape)}, w2 {tuple(w2.shape)}")
     if idx.dtype != torch.int32:
         raise TypeError(f"moe_experts takes int32 expert ids, got {idx.dtype}")
 
 
 def moe_experts_plain(x: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
-                      w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                      w1: torch.Tensor, w3: Optional[torch.Tensor], w2: torch.Tensor,
                       counters: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`moe_experts`, the kernel's arithmetic:
     float32 products of the stored values, ``h`` rounded to ``x``'s dtype,
@@ -87,7 +90,10 @@ def moe_experts_plain(x: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
             continue
         read += 1
         xe = xf[tok]
-        h = (F.silu(xe @ w1[e].float().T) * (xe @ w3[e].float().T)).to(x.dtype).float()
+        if w3 is None:
+            h = F.relu(xe @ w1[e].float().T).square().to(x.dtype).float()
+        else:
+            h = (F.silu(xe @ w1[e].float().T) * (xe @ w3[e].float().T)).to(x.dtype).float()
         rows[tok, slot] = (h @ w2[e].float().T) * weights[tok, slot, None].float()
     if counters is not None:
         counters[0] += int((idx >= 0).sum())
@@ -117,16 +123,18 @@ def _sum_plan(N: int, K: int, device) -> Tuple[torch.Tensor, torch.Tensor, torch
 
 
 def moe_experts(x: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
-                w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                w1: torch.Tensor, w3: Optional[torch.Tensor], w2: torch.Tensor,
                 counters: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[n] = sum_k weights[n, k] * w2[e](silu(w1[e] x[n]) * w3[e] x[n])``
-    with ``e = idx[n, k]``, the k in ascending order.
+    with ``e = idx[n, k]``, the k in ascending order; with ``w3`` None
+    ``w2[e](relu(w1[e] x[n])^2)``.
 
     Args:
       x: [N, D] token rows (bfloat16 on the card).
       idx: int32 [N, K] chosen experts in ``[0, E)``; -1 drops the choice.
       weights: float32 [N, K] routing weights.
-      w1, w3: [E, M, D]; w2: [E, D, M], the experts this layer holds.
+      w1, w3: [E, M, D] (w3 None: the relu^2 form); w2: [E, D, M], the
+        experts this layer holds.
       counters: int64 [2] added to in place (rows routed, experts read).
     Returns float32 [N, D]. CPU tensors run the plain version; CUDA tensors
     launch the kernels (or raise).
@@ -135,7 +143,7 @@ def moe_experts(x: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
         return moe_experts_plain(x, idx, weights, w1, w3, w2, counters)
     _check(x, idx, weights, w1, w3, w2)
     for t, name in ((x, "x"), (w1, "w1"), (w3, "w3"), (w2, "w2")):
-        if t.dtype != torch.bfloat16:
+        if t is not None and t.dtype != torch.bfloat16:
             raise TypeError(f"moe_experts on the card takes bfloat16 {name}, got {t.dtype}")
     global launches
     N, K = idx.shape
@@ -143,16 +151,23 @@ def moe_experts(x: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
     if D % 128 or M % 64:
         raise ValueError(f"moe_experts: D={D} must be a multiple of 128, M={M} of 64")
     perm, offsets = segment_plan(idx.reshape(1, N * K), E)
-    x, w1, w3, w2 = x.contiguous(), w1.contiguous(), w3.contiguous(), w2.contiguous()
+    x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
     weights = weights.float().contiguous()
     h = torch.empty(N * K, M, dtype=torch.bfloat16, device=x.device)
     rows = torch.zeros(N * K, D, dtype=torch.float32, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
-        code = lib.s3d_moe_experts(
-            x.data_ptr(), perm.data_ptr(), offsets.data_ptr(), weights.data_ptr(),
-            w1.data_ptr(), w3.data_ptr(), w2.data_ptr(), h.data_ptr(), rows.data_ptr(),
-            N, K, E, D, M, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if w3 is None:
+            code = lib.s3d_moe_experts_relu2(
+                x.data_ptr(), perm.data_ptr(), offsets.data_ptr(), weights.data_ptr(),
+                w1.data_ptr(), w2.data_ptr(), h.data_ptr(), rows.data_ptr(),
+                N, K, E, D, M, stream)
+        else:
+            code = lib.s3d_moe_experts(
+                x.data_ptr(), perm.data_ptr(), offsets.data_ptr(), weights.data_ptr(),
+                w1.data_ptr(), w3.contiguous().data_ptr(), w2.data_ptr(), h.data_ptr(),
+                rows.data_ptr(), N, K, E, D, M, stream)
     _build.check_launch(code, "moe_experts")
     launches += 1
     if counters is not None:
